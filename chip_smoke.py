@@ -3,17 +3,28 @@
 
     python3 chip_smoke.py
 
-Builds the rank-compaction kernel from csrc/, holds it bit for bit against
-its plain PyTorch version at the main path's shapes, holds the engine on the
-card against the engine on the CPU, and then runs ``classify-nx`` through the
-port's CLI against a 33M-probe fingerprint DB: a small sample checked against
-the reference simulator (tests/refsim.py) and a 500,000-read sample timed.
+Builds the rank-compaction kernel from csrc/ and holds it bit for bit
+against its plain PyTorch version at the shapes of classify-nx and of the
+long-read lane; holds the engine on the card against the engine on the CPU,
+for short batches and for the long-read lane; then drives every classify
+path through the port's CLI:
+
+* ``classify-nx`` against a 33M-probe fingerprint DB: a small sample checked
+  against the reference simulator (tests/refsim.py), a 500,000-read sample
+  timed;
+* ``classify-jobs`` (vf6) against the same DB: 20,000 FASTQ.gz reads plus
+  ~300 FASTA contigs and a 1.2-Mbase record, without and with ``-target``,
+  checked against the simulator; then a ~50-Mbase contig job timed through
+  ``run_vf6`` and through ``process_long_many`` alone;
+* ``mitokmer`` (m3) against a 2M-probe text DB on 17,226 targets, with
+  ``f2`` ``none`` and a FASTQ, checked against the simulator.
+
 Every phase that fails ends the run with a non-zero exit code.  Without a
 CUDA device it exits 1 before doing anything.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 lines before it hold the card's ``name, power.limit`` and one JSON object
-describing each kernel of the path.  Scratch data goes to
+describing each kernel of the paths.  Scratch data goes to
 ``build/chip_smoke/`` and is removed at the end.
 """
 
@@ -39,13 +50,19 @@ BIG_READS = 250_000  # per mate file
 SMALL_READS = 5_000
 BATCH, MAX_LEN = 8192, 160
 P = MAX_LEN - 30 + 1  # windows per row
+JOB_BATCH, JOB_MAX_LEN = 2048, 512  # the vf6/m3 CLI defaults
+LONG_P = JOB_MAX_LEN - 30 + 1  # windows per chunk row of the long-read lane
 # (name, rows, columns, max_hits, position plane broadcast from one row)
 KERNEL_SHAPES = (
     ("bloom_gate", BATCH, P, 12, True),
     ("fast_tier", BATCH, 36, 8, False),
     ("slow_tier", BATCH, 36, 32, False),
     ("dense_path", BATCH, 3 * P, 32, True),
+    ("long_bloom_gate", JOB_BATCH, LONG_P, 12, True),
+    ("long_verify_tier", JOB_BATCH, 36, 8, False),
+    ("long_dense_path", JOB_BATCH, 3 * LONG_P, 8, True),
 )
+MITO_TARG, MITO_PROBES = 17_226, 2_000_000  # targets of mitochondria_tree.txt
 DENSITIES = (0.0, 0.003, 0.03, 1.0)
 REPORT_DENSITY = 0.03
 
@@ -86,6 +103,14 @@ def kernel_inputs(rng, b, c, density, broadcast_pos, device):
         pos = np.repeat(rng.integers(0, P, size=(b, c // 3), dtype=np.int32), 3, axis=1)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     return t(cand), t(valid), t(pos), (t(ex[0]), t(ex[1]))
+
+
+def sync(device) -> None:
+    """Wait for the card's queued work (nothing to wait for on the CPU)."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
 
 
 def call_ms(fn, reps: int = 30) -> float:
@@ -241,6 +266,64 @@ def engine_phase(device="cuda", num_probes=100_000, batch=1024, max_len=256) -> 
         f"ucount sum {int(res['cpu'][2].sum())}")
 
 
+def long_reads(genome, seed=3):
+    """Long reads (uint8 codes) reaching every branch of the long-read lane:
+    consistent, chimeric, a genome copy (a probe at every window: candidate
+    overflow and the dense path), a 1,500-N run (the u8 plane), a read
+    shorter than KSIZE, one without probes, and 40 reads of 3-10 kb with
+    0-4 planted probes."""
+    r = np.random.default_rng(seed)
+    rnd = lambda n: r.integers(0, 4, size=n, dtype=np.uint8)  # noqa: E731
+
+    def planted(n, k):
+        a = rnd(n)
+        for p, g in zip(r.integers(0, n - 30, size=k), r.integers(0, len(genome) - 30, size=k)):
+            a[p : p + 30] = genome[g : g + 30]
+        return a
+
+    one = rnd(3000)
+    one[1000:1030] = genome[5000:5030]
+    nrun = np.concatenate([planted(2000, 2), np.full(1500, 4, np.uint8), planted(2000, 2)])
+    reads = [one, planted(8000, 5), genome[:30_000].copy(), nrun, rnd(20), rnd(5000)]
+    return reads + [planted(int(r.integers(3000, 10_000)), int(r.integers(0, 5)))
+                    for _ in range(40)]
+
+
+def long_engine_phase(device="cuda", num_probes=100_000, max_len=JOB_MAX_LEN) -> None:
+    """FpClassifier.process_long_many on ``device`` vs on the CPU: finals,
+    seen and ucount bit-equal, at a group size of 256 rows (several groups,
+    per-read finals on device) and of 32 rows (the genome copy's 62 rows
+    exceed a group: the summary lane)."""
+    sys.path.insert(0, ROOT)
+    from __graft_entry__ import _toy_world
+    from kmer_id_tpu.db.fpdb import build_fpdb
+    from kmer_id_tpu.io.batch import LongRead
+    from kmer_id_tpu_torch.engine.fpclassify import FpClassifier
+
+    packed, tax, _, _, genome = _toy_world(num_probes=num_probes, num_targ=256, batch=8,
+                                           max_len=max_len, long_len=num_probes)
+    fpdb = build_fpdb(packed, tax)
+    items = [LongRead(meta=None, codes=c) for c in long_reads(genome)]
+    for batch_size in (256, 32):
+        res = {}
+        for dev in (device, "cpu"):
+            clf = FpClassifier(packed, tax, batch_size=batch_size, max_len=max_len,
+                               fpdb=fpdb, device=dev)
+            seen, finals = clf.process_long_many(clf.new_seen(), items)
+            res[dev] = (finals, seen[: fpdb.n_slots].cpu().numpy(), clf.ucount(seen))
+        if res[device][0] != res["cpu"][0]:
+            raise AssertionError(f"long lane, groups of {batch_size}: finals differ")
+        for i, what in ((1, "seen"), (2, "ucount")):
+            if not np.array_equal(res[device][i], res["cpu"][i]):
+                raise AssertionError(f"long lane, groups of {batch_size}: {what} differs")
+        fin = res["cpu"][0]
+        if fin[2] <= 0 or fin[4] != 0 or res["cpu"][2].sum() == 0:
+            raise AssertionError("long lane: genome copy unresolved or no hits")
+        say(f"long lane {device} vs cpu, groups of {batch_size} rows ({len(items)} reads, "
+            f"max_len {max_len}): finals, seen, ucount bit-equal; "
+            f"{sum(f > 1 for f in fin)} reads classified")
+
+
 # ------------------------------------------------------------- nx phase
 
 
@@ -324,19 +407,20 @@ def write_reads(rng, path, n, plant_chars, tag):
         f.write(block.tobytes())
 
 
-class SortedProbes:
-    """``dict.get`` over sorted probe keys (RefSim's probe lookup, without a
-    33M-entry Python dict)."""
+def probe_dict(keys, targets, records, u_is_t: bool) -> dict:
+    """{key: target} of the DB's probes (sorted ``keys``) among the canonical
+    30-mers of the records' sequences: the reference simulator's probe
+    lookup restricted to the keys it can meet, in place of a 33M-entry dict
+    or a binary search per window.  The sequences are joined with an
+    invalid base between them, so no window spans two records."""
+    from kmer_id_tpu.core.codec import CODE_LUT, CODE_LUT_U, canonical_kmers
 
-    def __init__(self, keys, targets):
-        self.keys = keys
-        self.targets = targets
-
-    def get(self, key, default=0):
-        i = int(np.searchsorted(self.keys, np.uint64(key)))
-        if i < len(self.keys) and int(self.keys[i]) == key:
-            return int(self.targets[i])
-        return default
+    lut = CODE_LUT_U if u_is_t else CODE_LUT
+    text = b"\n".join(seq.encode("latin-1") for _, seq, _ in records)
+    q = np.unique(canonical_kmers(lut[np.frombuffer(text, dtype=np.uint8)])[0])
+    i = np.minimum(np.searchsorted(keys, q), len(keys) - 1)
+    hit = keys[i] == q
+    return dict(zip(q[hit].tolist(), np.asarray(targets)[i[hit]].tolist()))
 
 
 def repo_refsim():
@@ -355,7 +439,9 @@ def repo_refsim():
 
 def nx_phase(device="cuda", n_probes=N_PROBES, big=BIG_READS, small=SMALL_READS,
              batch=BATCH, max_len=MAX_LEN, work=WORK) -> dict:
-    """classify-nx through the port's CLI; returns the run's numbers."""
+    """classify-nx through the port's CLI; returns the run's numbers and the
+    DB (keys, targets, parent, DB dir, cache, planted probe letters), whose
+    files stay in ``work`` for the jobs phase."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -397,11 +483,12 @@ def nx_phase(device="cuda", n_probes=N_PROBES, big=BIG_READS, small=SMALL_READS,
         m = {r["sample"]: r for r in map(json.loads, f)}
 
     # small sample: the reference simulator decides every count and saved read
-    sim = RefSim(SortedProbes(keys, targets), parent, num_targ=NUM_TARG,
-                 u_is_t=False, savenum=12, variant="nx")
     t0 = time.perf_counter()
-    for mate in ("R1", "R2"):
-        sim.feed(iter_fastq_gz(os.path.join(fq, f"small_{mate}_tr.fastq.gz")))
+    records = [rec for mate in ("R1", "R2")
+               for rec in iter_fastq_gz(os.path.join(fq, f"small_{mate}_tr.fastq.gz"))]
+    sim = RefSim(probe_dict(keys, targets, records, False), parent, num_targ=NUM_TARG,
+                 u_is_t=False, savenum=12, variant="nx")
+    sim.feed(records)
     with open(os.path.join(fq, "small_result.txt")) as f:
         if f.read().splitlines() != sim.result_lines():
             raise AssertionError("small sample: _result.txt != RefSim")
@@ -427,14 +514,314 @@ def nx_phase(device="cuda", n_probes=N_PROBES, big=BIG_READS, small=SMALL_READS,
     if device != "cpu":
         profile_phase(device, db_dir, cache, os.path.join(fq, "big_R1_tr.fastq.gz"),
                       batch, max_len)
-    shutil.rmtree(work, ignore_errors=True)
     return {
         "reads": reads, "wall_s": m["big"]["wall_s"],
         "reads_per_s": m["big"]["reads_per_s"], "classified": m["big"]["classified"],
         "small_wall_s": m["small"]["wall_s"], "cli_s": run_s,
         "launches": launches, "table_bytes": table_bytes, "seen_bytes": fp.n_slots + 1,
         "peak_bytes": peak, "n_probes": len(keys),
+        "db": (keys, targets, parent, db_dir, cache, plant),
     }
+
+
+ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+def contig(rng, n, pool, k):
+    """n random bases (ASCII) with ``k`` rows of ``pool`` (30-base probe
+    letters) planted at random places."""
+    seq = ACGT[rng.integers(0, 4, size=n, dtype=np.uint8)]
+    if k and n > 30:
+        for p, i in zip(rng.integers(0, n - 30, size=k), rng.integers(0, len(pool), size=k)):
+            seq[p : p + 30] = pool[i]
+    return seq
+
+
+def write_fasta(path, seqs, tag):
+    with open(path, "wb") as f:
+        for i, seq in enumerate(seqs):
+            f.write(b">%s%d contig\n" % (tag.encode(), i))
+            f.write(seq.tobytes())
+            f.write(b"\n")
+
+
+def mixed_contigs(rng, keys, targets, n=300, big=1_200_000):
+    """~300 contigs of 0.5-20 kb and one ``big``-base record, with probes
+    planted about every 2 kb: a third from one target (consistent), the
+    rest from random targets (chimeric across incomparable targets); every
+    25th with a 1,100-1,500-N run, every 10th with U for T, every 50th with
+    25 probes back to back (chunks past the lane's 8-hit budget).  Returns
+    (contigs, the consistent contigs' target)."""
+    pool_idx = rng.choice(len(keys), size=20_000, replace=False)
+    pool = np.concatenate([_key_chars(keys[pool_idx]), _key_chars(_revcomp(keys[pool_idx]))])
+    t_one = int(targets[pool_idx[0]])
+    same = pool_idx[targets[pool_idx] == t_one]
+    if len(same) < 2:  # widen to every key of that target
+        same = np.nonzero(targets == t_one)[0][:64]
+    one_pool = np.concatenate([_key_chars(keys[same]), _key_chars(_revcomp(keys[same]))])
+    out = []
+    for i in range(n):
+        length = int(rng.integers(500, 20_001))
+        seq = contig(rng, length, one_pool if i % 3 == 0 else pool, length // 2000 + 1)
+        if i % 50 == 11:
+            p = int(rng.integers(0, max(length - 750, 1)))
+            dense = pool[rng.integers(0, len(pool), size=25)].reshape(-1)
+            seq[p : p + len(dense)] = dense[: len(seq) - p]
+        if i % 25 == 5:
+            seq = np.concatenate([seq[: length // 2], np.full(int(rng.integers(1100, 1501)),
+                                                              ord("N"), np.uint8),
+                                  seq[length // 2 :]])
+        if i % 10 == 7:
+            seq[seq == ord("T")] = ord("U")
+        out.append(seq)
+    out.append(contig(rng, big, pool, big // 4000))
+    return out, t_one
+
+
+def jobs_phase(device, db, work=WORK, batch=JOB_BATCH, max_len=JOB_MAX_LEN,
+               n_reads=20_000, n_contigs=300, big=1_200_000, timed_mbase=50) -> dict:
+    """classify-jobs through the port's CLI against the nx phase's DB (its
+    cache, plus ``<name>_data.txt``/``_tree.txt``): job ``mixed`` (FASTQ.gz
+    reads + FASTA contigs) and job ``target`` (the same files, ``-target``)
+    against the reference simulator; then a ~``timed_mbase``-Mbase job of
+    2-50 kb contigs timed through run_vf6 (driver level) and through
+    process_long_many on the decoded contigs (engine level)."""
+    import torch
+
+    from kmer_id_tpu.config import ClassifyConfig
+    from kmer_id_tpu.io.fastx import iter_fasta_plain, iter_fastq_gz
+    from kmer_id_tpu_torch import cli
+    from kmer_id_tpu_torch.ops.compact import compact_ranks_cuda
+
+    RefSim = repo_refsim()
+    keys, targets, parent, db_dir, cache, plant = db
+    rng = np.random.default_rng(SEED + 1)
+    root = os.path.join(work, "jobs")
+    dbd = os.path.join(root, "bact")
+    os.makedirs(dbd)
+    shutil.copy(os.path.join(db_dir, "bData10.txt"), os.path.join(dbd, "bact_data.txt"))
+    shutil.copy(os.path.join(db_dir, "btree_10.txt"), os.path.join(dbd, "bact_tree.txt"))
+    t0 = time.perf_counter()
+    fq = os.path.join(root, "reads.fastq.gz")
+    write_reads(rng, fq, n_reads, plant, "j")
+    contigs, t_one = mixed_contigs(rng, keys, targets, n_contigs, big)
+    fa = os.path.join(root, "contigs.fasta")
+    write_fasta(fa, contigs, "c")
+    say(f"jobs: {n_reads} reads, {len(contigs)} contigs of "
+        f"{sum(len(c) for c in contigs)} bases generated in {time.perf_counter() - t0:.1f} s")
+
+    engine = ["--batch-size", str(batch), "--max-len", str(max_len), "--cache-dir", cache,
+              "--device", device]
+    launches = 0
+    for jname, job, target in (("jobs_mixed", "mixed", 0), ("jobs_target", "target", t_one)):
+        os.makedirs(os.path.join(root, jname))
+        with open(os.path.join(root, jname, jname + ".txt"), "w") as f:
+            f.write(f"{job} 2\n{fq}\n{fa}\n")
+        compact_ranks_cuda.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["classify-jobs", "-name", "bact", "-jname", jname, "--root", root,
+                       "-target", str(target)] + engine)
+        if rc != 0:
+            raise AssertionError(f"classify-jobs exited {rc}")
+        launches += compact_ranks_cuda.launches
+        say(f"jobs: classify-jobs job {job} ran in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    records = list(iter_fastq_gz(fq)) + list(iter_fasta_plain(fa))
+    probes = probe_dict(keys, targets, records, True)
+    for jname, job, target in (("jobs_mixed", "mixed", 0), ("jobs_target", "target", t_one)):
+        sim = RefSim(probes, parent, num_targ=NUM_TARG, u_is_t=True, savenum=12,
+                     save_target=target, variant="vf6")
+        sim.feed(records)
+        out = {}
+        for k in ("result", "reads", "target_reads")[: 3 if target else 2]:
+            with open(os.path.join(root, jname, f"{job}_{k}.txt")) as f:
+                out[k] = f.read()
+        if out["result"].splitlines() != sim.result_lines():
+            raise AssertionError(f"job {job}: _result.txt != RefSim")
+        if out["reads"] != "".join(f">{t}:{a}\n{s}\n" for t, a, s in sim.saved):
+            raise AssertionError(f"job {job}: _reads.txt != RefSim")
+        if target:
+            want = "".join(f">{t}:{a}\n{s}\n" for t, a, s in sim.saved_target)
+            if out["target_reads"] != want or not sim.saved_target:
+                raise AssertionError(f"job {job}: _target_reads.txt != RefSim")
+        elif os.path.exists(os.path.join(root, jname, f"{job}_target_reads.txt")):
+            raise AssertionError("a job without -target wrote _target_reads.txt")
+    say(f"jobs mixed/target: {sim.reads} reads ({sum(sim.gcount[2:])} classified, "
+        f"{len(sim.saved_target)} of target {t_one}): _result.txt, _reads.txt and "
+        f"_target_reads.txt equal RefSim (checked in {time.perf_counter() - t0:.1f} s)")
+    timed = timed_long_job(device, rng, root, keys, plant, cache, batch, max_len, timed_mbase)
+    return {"launches": launches, **timed}
+
+
+def timed_long_job(device, rng, root, keys, plant, cache, batch, max_len, mbase) -> dict:
+    """A ~``mbase``-Mbase job of 2-50 kb contigs (a planted probe about every
+    5 kb) through run_vf6 with the classifier built beforehand (driver
+    level: decode, placeholder batches, chunking, lane, accounting), then
+    process_long_many on the same contigs decoded beforehand (engine
+    level), unprofiled and under torch.profiler.  The two runs' counts must
+    agree."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kmer_id_tpu.config import ClassifyConfig
+    from kmer_id_tpu.core.codec import CODE_LUT_U
+    from kmer_id_tpu.io.batch import LongRead
+    from kmer_id_tpu.io.native_feed import NativePlaneFeeder
+    from kmer_id_tpu_torch.engine.pipeline import load_db, make_classifier, run_vf6
+
+    seqs, total = [], 0
+    while total < mbase * 1_000_000:
+        n = int(rng.integers(2000, 50_001))
+        seqs.append(contig(rng, n, plant, n // 5000))
+        total += n
+    fa = os.path.join(root, "timed.fasta")
+    write_fasta(fa, seqs, "t")
+    jname = "jobs_timed"
+    os.makedirs(os.path.join(root, jname))
+    with open(os.path.join(root, jname, jname + ".txt"), "w") as f:
+        f.write(f"timed 1\n{fa}\n")
+    dbd = os.path.join(root, "bact")
+    db = load_db(os.path.join(dbd, "bact_data.txt"), os.path.join(dbd, "bact_tree.txt"),
+                 os.path.join(dbd, "bact_probes.txt.gz"), cache_dir=cache)
+    cfg = ClassifyConfig.preset("vf6", batch_size=batch, max_len=max_len)
+    clf = make_classifier(db, cfg, cache_dir=cache, device=device)
+    sync(device)
+    t0 = time.perf_counter()
+    run_vf6("bact", jname, db, cfg, root=root, clf=clf)
+    sync(device)
+    driver_s = time.perf_counter() - t0
+    with open(os.path.join(root, jname, "timed_result.txt")) as f:
+        gcount = np.array([int(line.split(",")[1]) for line in f])
+    # the driver's decode alone: native batches and each long row's codes
+    feeder = NativePlaneFeeder(batch, max_len, True)
+    t0 = time.perf_counter()
+    nbs = list(feeder.feed_path(fa)) + list(feeder.flush())
+    for nb in nbs:
+        for i in nb.long_rows:
+            nb.batch.metas.seq_codes(i, True)
+    decode_s = time.perf_counter() - t0
+
+    items = [LongRead(meta=None, codes=CODE_LUT_U[s]) for s in seqs]
+    t0 = time.perf_counter()
+    rows = len(clf.chunk_rows(items)[2])
+    chunk_s = time.perf_counter() - t0
+    sync(device)
+    t0 = time.perf_counter()
+    _, finals = clf.process_long_many(clf.new_seen(), items)
+    sync(device)
+    engine_s = time.perf_counter() - t0
+    if not np.array_equal(np.bincount(finals, minlength=len(gcount)), gcount):
+        raise AssertionError("timed job: engine-level finals disagree with run_vf6's counts")
+    dev, busy_ms = [], float("nan")  # device time: on the card only
+    if device != "cpu":
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            clf.process_long_many(clf.new_seen(), items)
+            torch.cuda.synchronize()
+        dev = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+        busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    mb = total / 1e6
+    say(f"long lane timed job: {len(seqs)} contigs, {total} bases, {rows} chunk rows of "
+        f"{max_len}, groups of {batch}: driver (run_vf6) {driver_s} s = {mb / driver_s} Mbase/s, "
+        f"of which native decode {decode_s} s ({len(nbs)} native batches); "
+        f"engine (process_long_many, decoded) {engine_s} s = {mb / engine_s} Mbase/s, of "
+        f"which host chunking {chunk_s * 1e3} ms; device busy {busy_ms} ms under the "
+        f"profiler ({100 * busy_ms / (engine_s * 1e3)}% of the unprofiled engine time)")
+    for e in dev[:8]:
+        say(f"  device {e.self_device_time_total / 1e3:.3f} ms  {e.count} calls  {e.key[:90]}")
+    return {"mbase": mb, "driver_mbase_s": mb / driver_s, "engine_mbase_s": mb / engine_s,
+            "chunk_ms": chunk_s * 1e3, "decode_s": decode_s, "device_busy_ms": busy_ms}
+
+
+def m3_phase(device, work=WORK, n_probes=MITO_PROBES, num_targ=MITO_TARG,
+             n_reads=20_000) -> dict:
+    """mitokmer through the port's CLI on a synthetic mito-scale text DB
+    (``num_targ`` targets, ``n_probes`` probes, a 7-column refkey): reads of
+    100-300 bp plus 1% of 600-2,000 bp with ``f2`` ``none``, then again with
+    a FASTQ ``f2``; result.txt against the reference simulator each time."""
+    from kmer_id_tpu.db.probes import ProbeRecords, write_probes_text
+    from kmer_id_tpu.io.fastx import iter_fasta_plain, iter_fastq_plain
+    from kmer_id_tpu_torch import cli
+    from kmer_id_tpu_torch.ops.compact import compact_ranks_cuda
+
+    RefSim = repo_refsim()
+    rng = np.random.default_rng(SEED + 2)
+    w = os.path.join(work, "mito")
+    os.makedirs(w)
+    t0 = time.perf_counter()
+    parent = np.ones(num_targ, dtype=np.int32)
+    for i in range(3, num_targ):
+        parent[i] = int(rng.integers(1, i))
+    raw = rng.integers(0, 1 << 60, size=int(n_probes * 1.02), dtype=np.uint64)
+    keys = np.unique(np.minimum(raw, _revcomp(raw)))[:n_probes]
+    targets = rng.integers(2, num_targ, size=len(keys)).astype(np.int32)
+    n = len(keys)
+    txt = os.path.join(w, "mitochondria_probes.txt")
+    write_probes_text(ProbeRecords(keys=keys, target=targets, org=np.zeros(n, np.int32),
+                                   position=np.zeros(n, np.int32), fstrand=np.ones(n, bool),
+                                   count=np.ones(n, np.int32)), txt)
+    with open(txt, "rb") as f, gzip.open(txt + ".gz", "wb", compresslevel=1) as g:
+        shutil.copyfileobj(f, g)
+    os.remove(txt)
+    with open(os.path.join(w, "mitochondria_data.txt"), "w") as f:
+        f.writelines(f"{t}\tMT{t:06d}\n" for t in range(2, num_targ))
+    with open(os.path.join(w, "mitochondria_tree.txt"), "w") as f:
+        f.writelines(f"{parent[t]}\t{t}\n" for t in range(2, num_targ))
+    with open(os.path.join(w, "mitochondria_refkey.txt"), "w") as f:
+        f.write("target\tname\tcount\thit\ttested\tgsize\tnstrains\n")
+        f.writelines(f"{t}\tEukaryota_Chordata_Mammalia_Primates_Hominidae_Sp{t}\t{t % 90 + 10}"
+                     f"\t{t % 40 + 10}\t{t % 70 + 50}\t16569\t1\n" for t in range(num_targ))
+    sel = rng.choice(n, size=50_000, replace=False)
+    pool = np.concatenate([_key_chars(keys[sel]), _key_chars(_revcomp(keys[sel]))])
+    lens = np.concatenate([rng.integers(100, 301, size=n_reads),
+                           rng.integers(600, 2001, size=n_reads // 100)])
+    rng.shuffle(lens)
+    reads = [contig(rng, int(m), pool, int(rng.integers(0, 4))) for m in lens]
+    for i in range(0, len(reads), 37):
+        reads[i][reads[i] == ord("T")] = ord("U")
+    fa = os.path.join(w, "reads.fasta")
+    write_fasta(fa, reads, "m")
+    fq2 = os.path.join(w, "reads2.fastq")
+    with open(fq2, "wb") as f:
+        for i in range(n_reads // 4):
+            seq = contig(rng, 150, pool, int(rng.integers(0, 3)))
+            qual = np.full(150, ord("I"), np.uint8)
+            if i % 9 == 0:
+                qual[-30:] = ord("#")
+            f.write(b"@q%d\n%s\n+\n%s\n" % (i, seq.tobytes(), qual.tobytes()))
+    say(f"m3: {n} probes on {num_targ} targets, {len(reads)} FASTA reads "
+        f"({int((lens > 512).sum())} longer than 512) and {n_reads // 4} FASTQ reads "
+        f"generated in {time.perf_counter() - t0:.1f} s")
+
+    fa_records = list(iter_fasta_plain(fa))
+    fq_records = list(iter_fastq_plain(fq2))
+    probes = probe_dict(keys, targets, fa_records + fq_records, True)
+    sim = RefSim(probes, parent.tolist(), num_targ=num_targ, u_is_t=True, variant="m3")
+    launches = 0
+    for f2, recs in (("none", fa_records), (fq2, fq_records)):
+        out = os.path.join(work, "mito_out")
+        compact_ranks_cuda.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["mitokmer", "-w", w, "-d", out, "-i", fa, f2, "--device", device])
+        if rc != 0:
+            raise AssertionError(f"mitokmer exited {rc}")
+        launches += compact_ranks_cuda.launches
+        run_s = time.perf_counter() - t0
+        sim.feed(recs)  # f2 given: the same sample, fed on after f1
+        with open(os.path.join(w, "result.txt")) as f:
+            if f.read().splitlines() != sim.result_lines():
+                raise AssertionError(f"mitokmer f2={os.path.basename(f2)}: result.txt != RefSim")
+        with open(os.path.join(out, "mitokmer_result.csv")) as f:
+            csv = f.read().splitlines()
+        if csv[0] != "taxid,reads,abundance" or len(csv) < 4:
+            raise AssertionError("mitokmer_result.csv malformed")
+        say(f"m3 mitokmer f2={os.path.basename(f2)}: {sim.reads} reads "
+            f"({sum(sim.gcount[2:])} classified) in {run_s:.1f} s (text DB parse and "
+            f"table build included); result.txt equals RefSim; mitokmer_result.csv "
+            f"{len(csv)} lines")
+    return {"launches": launches}
 
 
 def profile_phase(device, db_dir, cache, fastq_path, batch, max_len, n_batches=8):
@@ -519,12 +906,22 @@ def main() -> int:
     say(f"phase kernel: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     engine_phase()
+    long_engine_phase()
     say(f"phase engine: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     nx = nx_phase()
     say(f"phase nx: {time.perf_counter() - t0:.1f} s")
-    if nx["launches"] <= 0:
-        raise AssertionError("the main path launched the compaction kernel no time")
+    t0 = time.perf_counter()
+    jobs = jobs_phase("cuda", nx["db"])
+    say(f"phase jobs: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    m3 = m3_phase("cuda")
+    say(f"phase m3: {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(WORK, ignore_errors=True)
+    launches = {"nx": nx["launches"], "jobs": jobs["launches"], "m3": m3["launches"]}
+    for path, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the {path} path launched the compaction kernel no time")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     say(f"nx big sample: {nx['reads']} reads ({nx['classified']} classified) in "
@@ -532,14 +929,18 @@ def main() -> int:
         f"(batch {BATCH}, max_len {MAX_LEN}, {nx['n_probes']} probes)")
     say(f"nx device tables {nx['table_bytes']} bytes + seen {nx['seen_bytes']} bytes, "
         f"peak allocated {nx['peak_bytes']} bytes on {card}")
-    say(f"nx compaction kernel launches on the main path: {nx['launches']}")
+    say(f"long lane on {card} (batch {JOB_BATCH}, max_len {JOB_MAX_LEN}, "
+        f"{nx['n_probes']} probes, {jobs['mbase']} Mbase of 2-50 kb contigs): driver "
+        f"{jobs['driver_mbase_s']} Mbase/s, engine {jobs['engine_mbase_s']} Mbase/s")
+    say(f"compaction kernel launches by path: {launches}")
     k_ms, p_ms = kr["times"]["bloom_gate"]
     print(json.dumps({"kernels": [{
         "name": "compact_ranks", "route": "cuda",
         "source": "kmer_id_tpu_torch/csrc/compact.cu",
         "replaces": "kmer_id_tpu/ops/compact.py:101",
-        "launches": nx["launches"], "max_abs_err": kr["max_abs_err"],
-        "ms": k_ms, "plain_ms": p_ms,
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "max_abs_err": kr["max_abs_err"], "ms": k_ms, "plain_ms": p_ms,
+        "shapes": {name: {"ms": t[0], "plain_ms": t[1]} for name, t in kr["times"].items()},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,15 @@
 """Command line of the PyTorch port.
 
-    python -m kmer_id_tpu_torch.cli classify-nx FASTQ_DIR --db-dir DIR \\
-        [--cache-dir DIR] [--batch-size N] [--max-len L] [--device cuda]
+    python -m kmer_id_tpu_torch.cli classify-nx FASTQ_DIR --db-dir DIR [...]
+    python -m kmer_id_tpu_torch.cli classify-jobs -name DB -jname JOBS [-target T] [...]
+    python -m kmer_id_tpu_torch.cli classify-m3 -wdir DIR -f1 READS [-f2 READS|none] [...]
+    python -m kmer_id_tpu_torch.cli mitokmer -w DIR -d OUT -i READS1 READS2|none [...]
+    python -m kmer_id_tpu_torch.cli readc --jobs-name JOBS --folder DB [...]
 
-``classify-nx`` takes the flags of ``kmer_id_tpu.cli classify-nx`` that the
-port supports and writes the same ``<sample>_result.txt`` and
-``<sample>_reads.txt`` files.  ``--device`` defaults to ``cuda`` and fails
-when no CUDA device is present.
+Each subcommand takes the flags of its namesake in ``kmer_id_tpu.cli``
+that the port supports (``--batch-size --max-len --cache-dir --engine``;
+not the mesh, multi-host or ``--profile`` flags) and writes the same files.
+``--device`` defaults to ``cuda`` and fails when no CUDA device is present.
 """
 
 from __future__ import annotations
@@ -17,6 +20,37 @@ import sys
 
 from kmer_id_tpu.config import ClassifyConfig
 from kmer_id_tpu.utils.logging import set_verbosity
+
+
+def _add_engine_args(p):
+    p.add_argument("--batch-size", type=int, default=2048)
+    p.add_argument("--max-len", type=int, default=512)
+    p.add_argument("--cache-dir", default=None, help="packed-DB artifact cache dir")
+    p.add_argument("--engine", choices=("fp", "legacy"), default="fp",
+                   help="fp = fingerprint engine; legacy is not ported yet")
+    p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:N, cpu)")
+
+
+def _preset(variant: str, args, **overrides) -> ClassifyConfig:
+    return ClassifyConfig.preset(variant, batch_size=args.batch_size, max_len=args.max_len,
+                                 engine=args.engine, **overrides)
+
+
+def _run_jobs(name: str, jobs_name: str, args):
+    """vf6 over ``<root>/<jobs_name>`` against the DB ``<root>/<name>/<name>_*``."""
+    from kmer_id_tpu_torch.engine.pipeline import load_db, make_classifier, run_vf6
+
+    wdir = os.path.join(args.root, name)
+    db = load_db(
+        os.path.join(wdir, f"{name}_data.txt"),
+        os.path.join(wdir, f"{name}_tree.txt"),
+        os.path.join(wdir, f"{name}_probes.txt.gz"),
+        cache_dir=args.cache_dir,
+    )
+    cfg = _preset("vf6", args, save_target=args.target)
+    clf = make_classifier(db, cfg, cache_dir=args.cache_dir, device=args.device)
+    run_vf6(name, jobs_name, db, cfg, root=args.root, clf=clf)
+    return wdir
 
 
 def main(argv=None):
@@ -37,35 +71,97 @@ def main(argv=None):
     nx.add_argument("--resume", action="store_true")
     nx.add_argument("--metrics", default=None, metavar="JSONL",
                     help="write per-sample metrics to this JSONL file")
-    nx.add_argument("--batch-size", type=int, default=2048)
-    nx.add_argument("--max-len", type=int, default=512)
-    nx.add_argument("--cache-dir", default=None, help="packed-DB artifact cache dir")
-    nx.add_argument("--engine", choices=("fp", "legacy"), default="fp",
-                    help="fp = fingerprint engine; legacy is not ported yet")
-    nx.add_argument("--device", default="cuda", help="torch device (cuda, cuda:N, cpu)")
+    _add_engine_args(nx)
+
+    vj = sub.add_parser("classify-jobs", help="vf6 job-based classification")
+    vj.add_argument("-name", required=True)
+    vj.add_argument("-jname", required=True)
+    vj.add_argument("-fadir", default="")
+    vj.add_argument("-target", type=int, default=0)
+    vj.add_argument("--root", default=".")
+    _add_engine_args(vj)
+
+    m3 = sub.add_parser("classify-m3", help="single-sample mitochondrial run")
+    m3.add_argument("-wdir", required=True)
+    m3.add_argument("-f1", required=True)
+    m3.add_argument("-f2", default="none")
+    _add_engine_args(m3)
+
+    mk = sub.add_parser("mitokmer", help="Galaxy orchestrator (kmer_read_m3.py)")
+    mk.add_argument("-w", dest="wdir", required=True)
+    mk.add_argument("-d", dest="outdir", required=True)
+    mk.add_argument("-i", dest="inputs", nargs=2, required=True)
+    mk.add_argument("--strip-cr", action="store_true",
+                    help="normalize CRLF refkeys (reference crashes on them)")
+    _add_engine_args(mk)
+
+    rd = sub.add_parser("readc", help="chloroplast orchestrator (kmer_readc.py)")
+    rd.add_argument("--jobs-name", required=True)
+    rd.add_argument("--folder", required=True)
+    rd.add_argument("--fadir", default="")
+    rd.add_argument("--target", type=int, default=0)
+    rd.add_argument("--root", default=".")
+    _add_engine_args(rd)
 
     args = ap.parse_args(argv)
     set_verbosity(args.verbose)
 
-    from kmer_id_tpu_torch.engine.pipeline import load_db, make_classifier, run_nx
+    if args.cmd == "classify-nx":
+        from kmer_id_tpu_torch.engine.pipeline import load_db, make_classifier, run_nx
 
-    cfg = ClassifyConfig.preset(
-        "nx", num_targ=args.num_targ, batch_size=args.batch_size,
-        max_len=args.max_len, engine=args.engine,
-    )
-    dbd = args.db_dir
-    db = load_db(
-        args.data or os.path.join(dbd, "bData10.txt"),
-        args.tree or os.path.join(dbd, "btree_10.txt"),
-        args.probes or os.path.join(dbd, "probes10.txt.gz"),
-        num_targ=args.num_targ,
-        cache_dir=args.cache_dir,
-    )
-    clf = make_classifier(db, cfg, cache_dir=args.cache_dir, device=args.device)
-    run_nx(args.fastq_dir, db, cfg, e1=args.e1, e2=args.e2,
-           fasta_mode=args.fasta, resume=args.resume, clf=clf,
-           metrics_path=args.metrics)
-    return 0
+        cfg = _preset("nx", args, num_targ=args.num_targ)
+        dbd = args.db_dir
+        db = load_db(
+            args.data or os.path.join(dbd, "bData10.txt"),
+            args.tree or os.path.join(dbd, "btree_10.txt"),
+            args.probes or os.path.join(dbd, "probes10.txt.gz"),
+            num_targ=args.num_targ,
+            cache_dir=args.cache_dir,
+        )
+        clf = make_classifier(db, cfg, cache_dir=args.cache_dir, device=args.device)
+        run_nx(args.fastq_dir, db, cfg, e1=args.e1, e2=args.e2,
+               fasta_mode=args.fasta, resume=args.resume, clf=clf,
+               metrics_path=args.metrics)
+        return 0
+
+    if args.cmd == "classify-jobs":
+        _run_jobs(args.name, args.jname, args)
+        return 0
+
+    if args.cmd in ("classify-m3", "mitokmer"):
+        from kmer_id_tpu_torch.engine.pipeline import run_m3
+
+        cfg = _preset("m3", args)
+        if args.cmd == "classify-m3":
+            run_m3(args.wdir, args.f1, args.f2, cfg=cfg, device=args.device)
+            return 0
+        from kmer_id_tpu.report.rollup import m3_report
+
+        wdir = args.wdir + "/"
+        run_m3(wdir, args.inputs[0], args.inputs[1], cfg=cfg, device=args.device)
+        os.makedirs(args.outdir, exist_ok=True)
+        m3_report(
+            os.path.join(wdir, "result.txt"),
+            os.path.join(wdir, "mitochondria_refkey.txt"),
+            os.path.join(args.outdir, "mitokmer_result.csv"),
+            strip_cr=args.strip_cr,
+        )
+        return 0
+
+    if args.cmd == "readc":
+        from kmer_id_tpu.report.rollup import readc_report
+
+        wdir = _run_jobs(args.folder, args.jobs_name, args)
+        jdir = os.path.join(args.root, args.jobs_name)
+        readc_report(
+            jdir, args.jobs_name,
+            os.path.join(wdir, f"{args.folder}_key.txt"),
+            os.path.join(wdir, f"{args.folder}_count.txt"),
+            os.path.join(jdir, f"{args.jobs_name}.csv"),
+        )
+        return 0
+
+    return 1
 
 
 if __name__ == "__main__":

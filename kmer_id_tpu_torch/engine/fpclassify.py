@@ -1,7 +1,7 @@
-"""Fingerprint-engine classifier for short reads, in PyTorch.
+"""Fingerprint-engine classifier, in PyTorch.
 
-Port of the short-read path of ``kmer_id_tpu/engine/fpclassify.py``.  Per
-batch:
+Port of ``kmer_id_tpu/engine/fpclassify.py``: the short-read path and the
+long-read lane.  Per batch of short reads:
 
     packed 2-bit bases -> unpack -> extract (hi, lo, valid) [B, P]
       -> block-Bloom gate -> passing windows rank-compacted to BLOOM_K
@@ -12,6 +12,13 @@ batch:
 
 Finals carry bit 30 for reads with more candidates than ``max_hits``; the
 host replays those exactly (:meth:`FpClassifier._finish_collect`).
+
+Reads longer than ``max_len`` take the long-read lane
+(:meth:`FpClassifier.process_long_many`): KSIZE-1-halo chunk rows of many
+reads share one plane, :func:`fp_long_finals` reduces the rows of each read
+to its final on device, and reads it flags (inconsistent or
+candidate-overflowed) are folded on the host from the per-row summary plane
+(:func:`_summary_plane`).
 
 The JAX engine decides its batch-level branches inside one compiled program
 (``lax.cond``).  Eager PyTorch decides them on the host, one ``.item()``
@@ -35,11 +42,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from kmer_id_tpu.core.codec import INVALID, KSIZE
 from kmer_id_tpu.core.taxonomy import Taxonomy
 from kmer_id_tpu.db.fpdb import FpDB, build_fpdb, build_tinfo
 from kmer_id_tpu.db.probes import PackedDB
-from kmer_id_tpu.io.batch import Batch
-from kmer_id_tpu_torch.engine.host import PendingBatch, fold_host
+from kmer_id_tpu.io.batch import Batch, LongRead, pack_codes
+from kmer_id_tpu_torch.engine.host import PendingBatch, fold_host, fold_host_many
 from kmer_id_tpu_torch.ops.compact import SENT, compact_ranks, interleave_planes
 from kmer_id_tpu_torch.ops.extract import extract_kmers, unpack_codes
 from kmer_id_tpu_torch.ops.fold import fold_targets_chain
@@ -48,6 +56,8 @@ from kmer_id_tpu_torch.ops.words import u32_tensor
 
 FAST_HITS = 8  # fast verify tier's candidate budget
 BLOOM_K = 12  # per-read budget of Bloom-passing windows
+LONG_HITS = 8  # long-read lane: per-chunk verified-hit budget
+_INT32_MIN, _INT32_MAX = -(2**31), 2**31 - 1
 _WORD_TABLES = ("fptab", "fptab2", "rec", "bloom")
 _SALTS = ("fp_s1", "fp_s2", "fp_s3", "fp_s4", "fp_s5")
 
@@ -96,9 +106,9 @@ def _mark_seen(seen, idx):
 def _cv_tier(db, hi_ilv, lo_ilv, cand_ilv, valid_ilv, pos_ilv, mh: int,
              out_mh: int, seen):
     """Compact to ``mh`` candidates, verify against ``rec``, resolve (node,
-    tout) from ``tinfo``, mark verified slots in ``seen``.  Returns (ver,
-    tin, tout, depth, t) [B, out_mh] (pads are unverified).  The query key
-    words ride as compaction payloads."""
+    tout) from ``tinfo``, mark verified slots in ``seen``.  Returns (cand,
+    ver, tin, tout, depth, t) [B, out_mh] (pads are unverified).  The query
+    key words ride as compaction payloads."""
     b = cand_ilv.shape[0]
     mh = min(mh, cand_ilv.shape[1])
     pos32, cand32, _, (qhi, qlo) = compact_ranks(
@@ -114,7 +124,7 @@ def _cv_tier(db, hi_ilv, lo_ilv, cand_ilv, valid_ilv, pos_ilv, mh: int,
     tout = info[..., 1]
     if seen is not None:
         _mark_seen(seen, torch.where(ver, cand32, seen.shape[0] - 1))
-    return tuple(_pad_cols(x, out_mh - mh) for x in (ver, tin, tout, depth, t))
+    return tuple(_pad_cols(x, out_mh - mh) for x in (cand32, ver, tin, tout, depth, t))
 
 
 def _compact_verify(db, ex, max_hits: int, seen=None):
@@ -162,15 +172,74 @@ def _compact_verify(db, ex, max_hits: int, seen=None):
             res, ncand = tiered(whi, wlo, ci, vi, wp.repeat_interleave(len(planes), dim=1))
     else:
         res, ncand = tiered(hi, lo, *full_planes())
-    ver, tin, tout, depth, t = res
+    cand, ver, tin, tout, depth, t = res
     j = torch.where(ver, depth, -1).argmax(dim=1, keepdim=True)  # deepest hit
     dtin = tin.gather(1, j)
     return {
-        "nh": ver.sum(dim=1, dtype=torch.int32),
+        "cand": cand, "ver": ver, "nh": ver.sum(dim=1, dtype=torch.int32),
+        "deepest": cand.gather(1, j)[:, 0],
         "consistent": (~ver | ((tin <= dtin) & (dtin <= tout))).all(dim=1),
         "overflow": ncand > max_hits, "dtgt": t.gather(1, j)[:, 0],
-        "tin": tin, "tout": tout, "t": t,
+        "tin": tin, "tout": tout, "t": t, "depth": depth,
     }
+
+
+def _summary_plane(cv):
+    """int32 [B, 3 + mh]: col 0 the deepest verified slot (-1 if none), col 1
+    the verified hit count, col 2 flags (bit 0 consistent, bit 1 candidate
+    overflow), cols 3.. the verified slots in window order (-1 holes)."""
+    nh = cv["nh"]
+    flags = cv["consistent"].to(torch.int32) | (cv["overflow"].to(torch.int32) << 1)
+    slots = torch.where(cv["ver"], cv["cand"], -1)
+    deepest = torch.where(nh > 0, cv["deepest"], -1)
+    return torch.cat([deepest[:, None], nh[:, None], flags[:, None], slots], dim=1)
+
+
+def fp_summary(db, ex, max_hits: int):
+    """Candidate compaction + verify + the per-read summary plane.  Kept for
+    parity with the JAX package's ``mode="summary"`` dispatch; no path of the
+    port calls it (the lane uses :func:`fp_summary_seen`)."""
+    return _summary_plane(_compact_verify(db, ex, max_hits))
+
+
+def fp_summary_seen(db, ex, seen, max_hits: int):
+    """:func:`fp_summary` that also marks the verified slots in ``seen`` (in
+    place)."""
+    return _summary_plane(_compact_verify(db, ex, max_hits, seen))
+
+
+def fp_long_finals(db, ex, seg, seen, n_segs: int, max_hits: int):
+    """Long-read lane: per-read finals on device from chunk rows.
+
+    ``seg`` [rows] maps each chunk row to its read (a read's rows are
+    contiguous).  A read whose hits are all ancestors-or-self of its deepest
+    hit gets that hit's target; reads that are inconsistent or have a
+    candidate-overflowed row get bit 30 and are resolved on the host from
+    the summary plane, also returned.  The segment reductions start from
+    JAX's empty-segment values (sum 0, max INT32_MIN, min INT32_MAX), so a
+    segment without rows is consistent with no hits.  Marks ``seen`` in
+    place.  Returns (finals int32 [n_segs], summary int32 [rows, 3 + mh]).
+    """
+    cv = _compact_verify(db, ex, max_hits, seen)
+    ver, tin, tout, depth = cv["ver"], cv["tin"], cv["tout"], cv["depth"]
+    dev = ver.device
+    seg = seg.to(device=dev, dtype=torch.long)
+    nh_seg = torch.zeros(n_segs, dtype=torch.int32, device=dev).index_add_(0, seg, cv["nh"])
+    # deepest hit per read: max of (depth << 24 | tin), wrapped to int32 as
+    # JAX computes it (under consistency the deepest node is unique)
+    dkey = torch.where(ver, ((depth.long() << 24) | tin).to(torch.int32), -1)
+    seg_dkey = torch.full((n_segs,), _INT32_MIN, dtype=torch.int32, device=dev)
+    seg_dkey.scatter_reduce_(0, seg, dkey.amax(dim=1), "amax", include_self=True)
+    dtin_seg = seg_dkey.clamp(min=0) & 0xFFFFFF
+    dtin_row = dtin_seg.index_select(0, seg)[:, None]
+    ok = ~ver | ((tin <= dtin_row) & (dtin_row <= tout))
+    row_ok = (ok.all(dim=1) & ~cv["overflow"]).to(torch.int32)
+    seg_ok = torch.full((n_segs,), _INT32_MAX, dtype=torch.int32, device=dev)
+    seg_ok = seg_ok.scatter_reduce_(0, seg, row_ok, "amin", include_self=True) > 0
+    dtgt = db["tinfo"][:, 0].index_select(0, dtin_seg)
+    finals = torch.where(nh_seg > 0, dtgt, 0)
+    finals = torch.where(seg_ok, finals, finals | (1 << 30))
+    return finals, _summary_plane(cv)
 
 
 def fp_finals(db, ex, seen, max_hits: int):
@@ -216,9 +285,9 @@ def _slot_nodes(rec, tinfo):
 
 
 class FpClassifier:
-    """Short-read fingerprint engine on one torch device, with the JAX
-    engine's outer API: ``new_seen`` / ``submit_batch`` / ``collect`` /
-    ``process_batch`` / ``ucount``."""
+    """Fingerprint engine on one torch device, with the JAX engine's outer
+    API: ``new_seen`` / ``submit_batch`` / ``collect`` / ``process_batch`` /
+    ``process_long`` / ``process_long_many`` / ``ucount``."""
 
     def __init__(
         self,
@@ -292,6 +361,156 @@ class FpClassifier:
     def process_batch(self, seen, batch: Batch):
         seen, pending = self.submit_batch(seen, batch)
         return self.collect(seen, pending)
+
+    def process_long(self, seen, item: LongRead):
+        """One read longer than ``max_len`` (see :meth:`process_long_many`)."""
+        seen, finals = self.process_long_many(seen, [item])
+        return seen, finals[0]
+
+    def chunk_rows(self, items: list):
+        """KSIZE-1-halo chunk rows of every read, so no window is lost or
+        repeated at a join: (planes uint8 [R, max_len], lengths int32 [R],
+        read index int64 [R]).  Reads shorter than KSIZE have no rows."""
+        l = self.max_len
+        step = l - KSIZE + 1
+        planes, lens, row_item = [], [], []
+        for idx, item in enumerate(items):
+            codes = np.asarray(item.codes, dtype=np.uint8)
+            w = len(codes) - KSIZE + 1
+            if w <= 0:
+                continue
+            starts = np.arange(0, w, step)
+            pos = starts[:, None] + np.arange(l)[None, :]
+            planes.append(np.where(pos < len(codes), codes[np.minimum(pos, len(codes) - 1)],
+                                   INVALID))
+            lens.append(np.minimum(len(codes) - starts, l).astype(np.int32))
+            row_item.append(np.full(len(starts), idx, dtype=np.int64))
+        if not planes:
+            return (np.zeros((0, l), np.uint8), np.zeros(0, np.int32), np.zeros(0, np.int64))
+        return np.concatenate(planes), np.concatenate(lens), np.concatenate(row_item)
+
+    @staticmethod
+    def _row_batch(plane, lengths) -> Batch:
+        """Chunk rows as a batch: packed words, or the u8 plane when the rows
+        hold more invalid bases than the exception list takes."""
+        packed, exc = pack_codes(plane, lengths)
+        return Batch(codes=plane, lengths=lengths, metas=None, n_rows=len(plane),
+                     packed=packed, exc=exc)
+
+    def process_long_many(self, seen, items: list):
+        """Reads longer than ``max_len``: the chunk rows of many reads in
+        shared groups of at most ``batch_size`` rows, a read's rows always in
+        one group.  Each group's per-read finals come from
+        :func:`fp_long_finals`; all groups' finals are fetched at once, and
+        the summary planes only of groups holding a flagged read.  A flagged
+        read's hits are its rows' summary slots in row order, an overflow
+        row's taken from the exact per-window replay (:func:`fp_slots`),
+        folded in order (``fold_host_many``).  A read with more rows than a
+        group sends the whole call to :meth:`_long_many_summary`.  Marks
+        ``seen`` in place; returns (seen, finals list)."""
+        planes, lens, row_item = self.chunk_rows(items)
+        if len(row_item) == 0:
+            return seen, [0] * len(items)
+        mh = min(LONG_HITS, self.max_hits)
+        read_rows = np.bincount(row_item, minlength=len(items))
+        if read_rows.max() > self.batch_size:
+            return self._long_many_summary(seen, items, planes, lens, row_item, mh)
+        groups = []  # (first row, row count)
+        g0 = r0 = 0
+        for nr in read_rows[read_rows > 0].tolist():
+            if r0 - g0 + nr > self.batch_size:
+                groups.append((g0, r0 - g0))
+                g0 = r0
+            r0 += nr
+        groups.append((g0, r0 - g0))
+
+        runs = []  # (first row, row count, first read, read count, batch, finals, summary)
+        for g0, n in groups:
+            rows = slice(g0, g0 + n)
+            item0 = int(row_item[g0])
+            k = int(row_item[g0 + n - 1]) - item0 + 1
+            batch = self._row_batch(planes[rows], lens[rows])
+            seg = torch.from_numpy(row_item[rows] - item0)
+            fin, summary = fp_long_finals(self._db, self._extract(batch), seg, seen, k, mh)
+            runs.append((g0, n, item0, k, batch, fin, summary))
+        fetched = torch.cat([r[5] for r in runs]).cpu().numpy()
+        flag = (fetched & (1 << 30)) != 0
+        finals = [0] * len(items)
+        off = 0
+        flagged_runs = []
+        for run in runs:
+            item0, k = run[2], run[3]
+            finals[item0 : item0 + k] = (fetched[off : off + k] & ~np.int32(1 << 30)).tolist()
+            if flag[off : off + k].any():
+                flagged_runs.append((run, np.nonzero(flag[off : off + k])[0]))
+            off += k
+        if not flagged_runs:
+            return seen, finals
+
+        sums = torch.cat([run[6] for run, _ in flagged_runs]).cpu().numpy()
+        targets, ids = [], []
+        off = 0
+        for (g0, n, item0, k, batch, _, _), fl in flagged_runs:
+            s = sums[off : off + n]
+            off += n
+            replay = self._replay_overflow(seen, batch, np.nonzero(s[:, 2] & 2)[0])
+            targets += self._read_targets(s[:, 3:], row_item[g0 : g0 + n] - item0, fl, replay)
+            ids += (item0 + fl).tolist()
+        for idx, f in zip(ids, fold_host_many(self.taxonomy, targets).tolist()):
+            finals[idx] = f
+        return seen, finals
+
+    def _long_many_summary(self, seen, items, planes, lens, row_item, mh):
+        """Summary-plane lane for a call holding a read with more chunk rows
+        than a group: per-row summaries of every group of ``batch_size``
+        rows, one fetch, the overflow replay, and every read folded on the
+        host."""
+        bs = self.batch_size
+        runs = []
+        for g in range(0, len(row_item), bs):
+            batch = self._row_batch(planes[g : g + bs], lens[g : g + bs])
+            runs.append((batch, fp_summary_seen(self._db, self._extract(batch), seen, mh)))
+        s = torch.cat([summary for _, summary in runs]).cpu().numpy()
+        ovr_rows = np.nonzero(s[:, 2] & 2)[0]
+        replay = {}
+        for gi in np.unique(ovr_rows // bs).tolist():
+            rows = ovr_rows[ovr_rows // bs == gi]
+            got = self._replay_overflow(seen, runs[gi][0], rows - gi * bs)
+            replay.update({r + gi * bs: v for r, v in got.items()})
+        targets = self._read_targets(s[:, 3:], row_item, np.arange(len(items)), replay)
+        return seen, fold_host_many(self.taxonomy, targets).tolist()
+
+    def _replay_overflow(self, seen, batch: Batch, rows) -> dict:
+        """Exact per-window verified slots of a group (marked in ``seen``),
+        for its candidate-overflow ``rows``: {row: slots [P], -1 = miss}."""
+        if len(rows) == 0:
+            return {}
+        plane = fp_slots(self._db, self._extract(batch))
+        _scatter_plane_seen(seen, plane)
+        plane = plane.cpu().numpy()
+        return {int(r): plane[int(r)] for r in rows}
+
+    def _read_targets(self, slots, row_read, reads, replay: dict) -> list:
+        """Window-ordered hit targets of each read in ``reads``: the verified
+        slots of its rows in row order (``slots`` [R, mh], -1 holes), an
+        overflow row's from its ``replay`` row instead.  ``row_read`` [R] is
+        the nondecreasing read index of each row."""
+        keep = np.isin(row_read, reads)
+        keep[list(replay)] = False
+        valid = (slots >= 0) & keep[:, None]
+        flat_read = np.repeat(row_read, slots.shape[1])[valid.reshape(-1)]
+        counts = np.bincount(flat_read, minlength=int(np.max(reads)) + 1)
+        parts = np.split(self.slot_target[slots[valid]], np.cumsum(counts)[:-1])
+        ovr_reads = {int(row_read[r]) for r in replay}
+        out = []
+        for j in np.asarray(reads).tolist():
+            if j in ovr_reads:
+                rows = np.nonzero(row_read == j)[0].tolist()
+                s = np.concatenate([replay.get(r, slots[r]) for r in rows])
+                out.append(self.slot_target[s[s >= 0]])
+            else:
+                out.append(parts[j])
+        return out
 
     def ucount(self, seen) -> np.ndarray:
         """Per-target unique-k-mer counts (int64 [num_targ]).  Nodes at or

@@ -1,13 +1,13 @@
-"""The classify-nx driver on the PyTorch engine.
+"""The classifier drivers (nx, vf6, m3) on the PyTorch engine.
 
 Port of ``load_db``, ``make_classifier``, ``SampleProcessor``,
-``write_result`` and ``run_nx`` from ``kmer_id_tpu/engine/pipeline.py``
-(which imports jax, so nothing of it is imported here).  Batches are
-submitted and collected in read order on the calling thread.
+``write_result``, ``run_nx``, ``load_jobs``, ``run_vf6`` and ``run_m3`` from
+``kmer_id_tpu/engine/pipeline.py`` (which imports jax, so nothing of it is
+imported here).  Batches and long reads are classified and accounted in
+read order on the calling thread.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than routed
-elsewhere: reads longer than ``max_len`` (ROADMAP.md §1 item 9, long-read
-lane), ``minalign > 0`` and ``--engine legacy`` (ROADMAP.md §1 item 10).
+elsewhere: ``minalign > 0`` and ``--engine legacy`` (ROADMAP.md §1 item 10).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from __future__ import annotations
 import json
 import os
 import time
+from contextlib import ExitStack
 from dataclasses import dataclass, field
 from typing import Iterable, Optional, TextIO
 
@@ -30,12 +31,11 @@ from kmer_id_tpu.db.probes import (
     parse_probes_text,
     save_packed,
 )
-from kmer_id_tpu.io.batch import Batch, LongRead, ReadBatcher
+from kmer_id_tpu.io.batch import LongRead, ReadBatcher
 from kmer_id_tpu.utils.logging import log
 from kmer_id_tpu.utils.timing import StageTimers
 from kmer_id_tpu_torch.engine.fpclassify import FpClassifier
 
-LONG_READS = "reads longer than max_len (the long-read lane, ROADMAP.md §1 item 9)"
 LEGACY = "the legacy engine and minalign > 0 (ROADMAP.md §1 item 10)"
 
 
@@ -49,6 +49,7 @@ class LoadedDB:
     taxonomy: Taxonomy
     strains: StrainList
     num_targ: int
+    kmers_loaded: int  # probe rows parsed, -1 if unknown (m3's "<2 kmers" gate)
 
 
 def load_db(
@@ -57,19 +58,31 @@ def load_db(
     probes_path: str,
     num_targ: int | None = None,
     cache_dir: str | None = None,
+    require_tree: bool = False,
 ) -> LoadedDB:
     """Load data/tree/probes into a packed DB + taxonomy.  With
     ``cache_dir``, the packed artifact is read from there when present
-    (its manifest first) and written there after a text parse."""
+    (its manifest first) and written there after a text parse.  A missing
+    tree file exits with status 1 under ``require_tree``
+    (``kmer_read_m3.cpp:1060``) and means a flat taxonomy otherwise."""
     strains = load_data_txt(data_path)
     nt = num_targ if num_targ is not None else strains.num_targ
-    edges = load_tree_edges(tree_path) if os.path.exists(tree_path) else []
+    if os.path.exists(tree_path):
+        edges = load_tree_edges(tree_path)
+    elif require_tree:
+        raise SystemExit(1)
+    else:
+        edges = []
     taxonomy = Taxonomy.from_edges(edges, num_nodes=nt)
 
     packed = None
-    if cache_dir and os.path.exists(os.path.join(cache_dir, "manifest.json")):
+    n_rows = -1
+    mpath = os.path.join(cache_dir, "manifest.json") if cache_dir else None
+    if mpath and os.path.exists(mpath):
         try:
             packed = load_packed(cache_dir)
+            with open(mpath) as f:
+                n_rows = json.load(f).get("source_rows", -1)
         except (OSError, ValueError, KeyError):
             packed = None  # unreadable cache: re-parse the text
     if packed is None:
@@ -78,13 +91,12 @@ def load_db(
         packed = pack_probes(records, num_targ=nt)
         if cache_dir:
             save_packed(packed, cache_dir)
-            mpath = os.path.join(cache_dir, "manifest.json")
             with open(mpath) as f:
                 manifest = json.load(f)
             manifest["source_rows"] = n_rows
             with open(mpath, "w") as f:
                 json.dump(manifest, f, indent=1)
-    return LoadedDB(packed, taxonomy, strains, nt)
+    return LoadedDB(packed, taxonomy, strains, nt, n_rows)
 
 
 def make_classifier(db: LoadedDB, cfg: ClassifyConfig, cache_dir: str | None = None,
@@ -124,7 +136,10 @@ class SampleProcessor:
 
     Two feed paths give identical results: :meth:`feed` (Python records
     through io/batch.ReadBatcher) and :meth:`feed_file` (the native decoder
-    fills the planes, io/native_feed.py, when it is available).
+    fills the planes, io/native_feed.py, when it is available).  Reads
+    longer than ``max_len`` go through the engine's long-read lane and are
+    accounted at their place in read order.  ``target_reads_out`` receives
+    every read whose final is ``cfg.save_target`` (vf6 ``-target``).
     """
 
     def __init__(
@@ -132,6 +147,7 @@ class SampleProcessor:
         clf: FpClassifier,
         cfg: ClassifyConfig,
         reads_out: Optional[TextIO] = None,
+        target_reads_out: Optional[TextIO] = None,
         use_native: bool | None = None,
     ):
         from kmer_id_tpu.io.native_feed import NativePlaneFeeder, native_available
@@ -141,6 +157,7 @@ class SampleProcessor:
         self.clf = clf
         self.cfg = cfg
         self.reads_out = reads_out
+        self.target_reads_out = target_reads_out
         self.gcount = np.zeros(clf.num_targ, dtype=np.int64)
         self.reads = 0
         self.seen = clf.new_seen()
@@ -160,14 +177,12 @@ class SampleProcessor:
                 self._consume(item)
 
     def feed_file(self, path, fmt: str | None = None) -> None:
-        """Stream one read file (extension-dispatched; pass ``fmt`` to force
-        a parser, as the nx driver does for FASTQ)."""
+        """Stream one read file (extension-dispatched, vf6:1133-1152; pass
+        ``fmt`` to force a parser, as the nx driver does for FASTQ)."""
         if self._feeder is not None:
             with self.timers.stage("decode+classify"):
                 for nb in self._feeder.feed_path(str(path), fmt=fmt):
-                    if nb.long_rows:
-                        raise _not_ported(LONG_READS)
-                    self._classify(nb.batch)
+                    self._classify_native(nb)
             return
         from kmer_id_tpu.io import fastx
         from kmer_id_tpu.io.native import detect_format
@@ -185,9 +200,7 @@ class SampleProcessor:
     def finish(self) -> SampleResult:
         if self._feeder is not None:
             for nb in self._feeder.flush():
-                if nb.long_rows:
-                    raise _not_ported(LONG_READS)
-                self._classify(nb.batch)
+                self._classify_native(nb)
         for item in self.batcher.flush():
             self._consume(item)
         with self.timers.stage("finalize"):
@@ -209,12 +222,30 @@ class SampleProcessor:
     # ------------------------------------------------------------ internals
     def _consume(self, item) -> None:
         if isinstance(item, LongRead):
-            raise _not_ported(LONG_READS)
-        self._classify(item)
+            self.seen, final = self.clf.process_long(self.seen, item)
+            self._account(int(final), item.meta)
+        else:
+            self.seen, finals = self.clf.process_batch(self.seen, item)
+            self._account_batch(finals[: item.n_rows], item.metas)
 
-    def _classify(self, batch: Batch) -> None:
+    def _classify_native(self, nb) -> None:
+        """A native batch: its short rows through the engine, its long rows
+        (placeholders of length 0 in the device batch) through the long-read
+        lane together, every row accounted in read order."""
+        batch = nb.batch
         self.seen, finals = self.clf.process_batch(self.seen, batch)
-        self._account_batch(finals[: batch.n_rows], batch.metas)
+        if not nb.long_rows:
+            self._account_batch(finals[: batch.n_rows], batch.metas)
+            return
+        metas = batch.metas
+        long_items = [LongRead(meta=None, codes=metas.seq_codes(i, self.cfg.u_is_t))
+                      for i in nb.long_rows]
+        self.seen, long_finals = self.clf.process_long_many(self.seen, long_items)
+        final = finals[: batch.n_rows].tolist()
+        for i, f in zip(nb.long_rows, long_finals):
+            final[i] = f
+        for i, f in enumerate(final):
+            self._account(int(f), None, metas, i)
 
     def _account_batch(self, finals: np.ndarray, metas) -> None:
         """Vectorized per-batch accounting, equal to :meth:`_account` row by
@@ -226,37 +257,52 @@ class SampleProcessor:
         n = len(finals)
         valid = (finals >= 0) & (finals < len(self.gcount))
         f = finals[valid]
-        if self.reads_out is not None and (cfg.variant == "nx" or cfg.save_target == 0):
-            gt1 = np.nonzero(valid & (finals > 1))[0]
-            if len(gt1):
-                ff = finals[gt1]
-                order = np.argsort(ff, kind="stable")
-                sf = ff[order]
-                first = np.concatenate([[0], np.nonzero(sf[1:] != sf[:-1])[0] + 1])
-                starts = np.zeros(len(sf), dtype=np.int64)
-                starts[first] = np.arange(len(sf))[first]
-                np.maximum.accumulate(starts, out=starts)
-                rank = np.arange(len(sf)) - starts  # occurrences before, in batch
-                rank_unsorted = np.empty(len(sf), dtype=np.int64)
-                rank_unsorted[order] = rank
-                before = self.gcount[ff] + rank_unsorted
-                for i in gt1[before < cfg.savenum].tolist():  # ascending rows
-                    meta = metas[i]
-                    self.reads_out.write(f">{finals[i]}:{meta.acc}\n{meta.trimmed_seq}\n")
+        want_main = self.reads_out is not None and (cfg.variant == "nx" or cfg.save_target == 0)
+        want_target = self.target_reads_out is not None and cfg.save_target > 1
+        gt1 = np.nonzero(valid & (finals > 1))[0]
+        if (want_main or want_target) and len(gt1):
+            ff = finals[gt1]
+            order = np.argsort(ff, kind="stable")
+            sf = ff[order]
+            first = np.concatenate([[0], np.nonzero(sf[1:] != sf[:-1])[0] + 1])
+            starts = np.zeros(len(sf), dtype=np.int64)
+            starts[first] = np.arange(len(sf))[first]
+            np.maximum.accumulate(starts, out=starts)
+            rank = np.arange(len(sf)) - starts  # occurrences before, in batch
+            rank_unsorted = np.empty(len(sf), dtype=np.int64)
+            rank_unsorted[order] = rank
+            before = self.gcount[ff] + rank_unsorted
+            main = set(gt1[before < cfg.savenum].tolist()) if want_main else set()
+            target = set(gt1[ff == cfg.save_target].tolist()) if want_target else set()
+            for i in sorted(main | target):  # ascending rows
+                meta = metas[i]
+                line = f">{finals[i]}:{meta.acc}\n{meta.trimmed_seq}\n"
+                if i in main:
+                    self.reads_out.write(line)
+                if i in target:
+                    self.target_reads_out.write(line)
         np.add.at(self.gcount, f, 1)
         self.reads += n
 
-    def _account(self, final: int, meta) -> None:
+    def _account(self, final: int, meta, metas=None, i: int = -1) -> None:
         """Saved-read capture + gcount for one read, in read order
-        (``newkmer_10nx.cpp:608-613``)."""
+        (``newkmer_10nx.cpp:608-613``); ``meta`` is read from ``metas[i]``
+        only when the read is written."""
         cfg = self.cfg
-        if (
-            1 < final < len(self.gcount)
-            and self.reads_out is not None
-            and self.gcount[final] < cfg.savenum
-            and (cfg.variant == "nx" or cfg.save_target == 0)
-        ):
-            self.reads_out.write(f">{final}:{meta.acc}\n{meta.trimmed_seq}\n")
+        if 1 < final < len(self.gcount):
+            save_main = (
+                self.reads_out is not None
+                and self.gcount[final] < cfg.savenum
+                and (cfg.variant == "nx" or cfg.save_target == 0)
+            )
+            save_target = self.target_reads_out is not None and final == cfg.save_target
+            if save_main or save_target:
+                meta = meta if meta is not None else metas[i]
+                line = f">{final}:{meta.acc}\n{meta.trimmed_seq}\n"
+                if save_main:
+                    self.reads_out.write(line)
+                if save_target:
+                    self.target_reads_out.write(line)
         if 0 <= final < len(self.gcount):
             self.gcount[final] += 1
         self.reads += 1
@@ -320,8 +366,8 @@ def run_nx(
 
             write_metrics_json(
                 metrics_path,
-                sample=prefix, reads=result.reads, wall_s=result.wall_s,
-                reads_per_s=result.reads / max(result.wall_s, 1e-9),
+                sample=prefix, reads=result.reads, wall_s=round(result.wall_s, 3),
+                reads_per_s=round(result.reads / max(result.wall_s, 1e-9), 1),
                 classified=int(result.reads - result.gcount[0]),
                 stages=result.stage_s, device=str(clf.device),
             )
@@ -330,3 +376,95 @@ def run_nx(
             json.dump(sorted(done), f)
         processed.append(prefix)
     return processed
+
+
+def load_jobs(jfile: str) -> tuple[list[str], list[list[str]]]:
+    """Parse a vf6 job file (``kmer_read_vf6.cpp:1021-1057``), including the
+    zero-file-job quirk: a job with 0 files keeps its name in the list but the
+    next job's files land in its slot."""
+    jnames: list[str] = []
+    fnames: list[list[str]] = []
+    num_jobs = 0
+    with open(jfile, "r", newline="") as f:
+        lines = iter(f)
+        for line in lines:
+            line = line.rstrip("\r\n")
+            if len(line) <= 1:
+                continue
+            parts = line.split()
+            jname, j = parts[0], int(parts[1])
+            jnames.append(jname)
+            fnames.append([])
+            for _ in range(j):
+                fl = next(lines).rstrip("\r\n")
+                fnames[num_jobs].append(fl.split()[0])
+            if j > 0:
+                num_jobs += 1
+    return jnames[:num_jobs], fnames[:num_jobs]
+
+
+def run_vf6(
+    name: str,
+    jname: str,
+    db: LoadedDB,
+    cfg: ClassifyConfig | None = None,
+    root: str = ".",
+    clf: FpClassifier | None = None,
+    device="cuda",
+) -> list[str]:
+    """Job-based classification (vf6 driver, ``kmer_read_vf6.cpp:966-1172``):
+    per job of ``<root>/<jname>/<jname>.txt``, ``<job>_result.txt``,
+    ``<job>_reads.txt`` and, with ``save_target > 0``,
+    ``<job>_target_reads.txt``.  Returns the job names."""
+    cfg = cfg or ClassifyConfig.preset("vf6")
+    clf = clf or make_classifier(db, cfg, device=device)
+    jdir = os.path.join(root, jname)
+    jnames, fnames = load_jobs(os.path.join(jdir, jname + ".txt"))
+    log(f"{len(jnames)} jobs")
+    for jstr, files in zip(jnames, fnames):
+        with ExitStack() as stack:
+            r_out = stack.enter_context(open(os.path.join(jdir, jstr + "_reads.txt"), "w"))
+            t_out = (
+                stack.enter_context(open(os.path.join(jdir, jstr + "_target_reads.txt"), "w"))
+                if cfg.save_target > 0
+                else None
+            )
+            sp = SampleProcessor(clf, cfg, reads_out=r_out, target_reads_out=t_out)
+            for fl in files:
+                sp.feed_file(fl)
+            result = sp.finish()
+        write_result(os.path.join(jdir, jstr + "_result.txt"), result)
+        log(f"job {jstr}: {result.reads} reads")
+    return jnames
+
+
+def run_m3(
+    wdir: str,
+    f1: str,
+    f2: str = "none",
+    cfg: ClassifyConfig | None = None,
+    device="cuda",
+) -> SampleResult:
+    """Single-sample mitochondrial classification (m3 driver,
+    ``kmer_read_m3.cpp:973-1132``): the DB is read from the
+    ``<wdir>mitochondria_*`` files without a cache, ``f2`` is skipped when it
+    is ``none``, and ``wdir/result.txt`` is written (no read-capture files).
+    Exits with status 1 without a tree file or with fewer than 2 probe rows."""
+    cfg = cfg or ClassifyConfig.preset("m3")
+    wdir = wdir if wdir.endswith("/") or wdir == "" else wdir + "/"
+    db = load_db(
+        wdir + "mitochondria_data.txt",
+        wdir + "mitochondria_tree.txt",
+        wdir + "mitochondria_probes.txt.gz",
+        require_tree=True,
+    )
+    if 0 <= db.kmers_loaded < 2:
+        raise SystemExit(1)  # kmer_read_m3.cpp:1067
+    clf = make_classifier(db, cfg, device=device)
+    sp = SampleProcessor(clf, cfg)
+    sp.feed_file(f1)
+    if len(f2) > 1 and f2 != "none":
+        sp.feed_file(f2)
+    result = sp.finish()
+    write_result(os.path.join(wdir, "result.txt"), result)
+    return result

@@ -5,8 +5,10 @@ The kernel runs only on a CUDA device, so every test here is marked
 ``cuda`` and skips elsewhere.  This file imports no jax, so it also runs on
 a machine that has only PyTorch (skip tests/conftest.py, which imports
 jax): ``pytest --noconftest -m cuda tests/test_torch_compact_cuda.py``.
-Shapes are the main path's (batch 8192: Bloom gate, both verify tiers, dense
-path) plus a budget wider than a warp; values are integers, equality exact.
+Shapes are classify-nx's (batch 8192, max_len 160: Bloom gate, both verify
+tiers, dense path), the long-read lane's (2048 chunk rows of max_len 512:
+Bloom gate, verify tier, dense path, all at the lane's budgets) and a budget
+wider than a warp; values are integers, equality exact.
 """
 
 import numpy as np
@@ -23,7 +25,9 @@ from kmer_id_tpu_torch.ops.compact import (
 @pytest.mark.cuda
 @pytest.mark.parametrize("density", [0.0, 0.003, 0.03, 1.0])
 @pytest.mark.parametrize("b,c,max_hits", [(8192, 131, 12), (8192, 36, 8),
-                                          (8192, 36, 32), (8192, 393, 32), (5, 70, 40)])
+                                          (8192, 36, 32), (8192, 393, 32),
+                                          (2048, 483, 12), (2048, 36, 8), (2048, 1449, 8),
+                                          (5, 70, 40)])
 def test_kernel_matches_plain_on_card(b, c, max_hits, density):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the card")

@@ -3,7 +3,8 @@ package's CLI on copies of one directory of paired FASTQ.gz samples:
 ``_result.txt`` and ``_reads.txt`` must be byte-identical, and equal to the
 reference simulator (tests/refsim.py).  Also: the port never imports jax,
 both feed paths agree, the resume manifest, the per-read and per-batch
-accounting agree, and the paths not yet ported refuse to run.
+accounting agree, and the paths not yet ported (the legacy engine,
+``minalign > 0``) refuse to run.
 """
 
 import gzip
@@ -212,6 +213,8 @@ def test_account_batch_equals_per_read_account():
 
 
 def test_unported_paths_refuse(world, tmp_path):
+    """The legacy engine and minalign > 0 (ROADMAP item 10) refuse on every
+    entry point instead of running elsewhere."""
     from kmer_id_tpu_torch import cli
     from kmer_id_tpu_torch.engine.pipeline import (
         SampleProcessor,
@@ -229,18 +232,24 @@ def test_unported_paths_refuse(world, tmp_path):
                         device="cpu")
     cfg = ClassifyConfig.preset("nx", num_targ=NUM_TARG, batch_size=8, max_len=64)
     clf = make_classifier(db, cfg, device="cpu")
-    long_read = [("long", "ACGT" * 40, None)]  # 160 bases > max_len
-    for native in (False, True):
-        path = tmp_path / f"long{native}.fasta"
-        path.write_text(">long\n" + "ACGT" * 40 + "\n")
-        sp = SampleProcessor(clf, cfg, use_native=native)
-        with pytest.raises(NotImplementedError, match="long-read"):
-            if native:
-                sp.feed_file(str(path))
-                sp.finish()
-            else:
-                sp.feed(long_read)
-                sp.finish()
+    with pytest.raises(NotImplementedError, match="minalign"):
+        SampleProcessor(clf, ClassifyConfig.preset("nx", num_targ=NUM_TARG, minalign=20))
+    # the vf6 and m3 subcommands refuse the legacy engine too
+    jobs = tmp_path / "jobs"
+    jobs.mkdir()
+    (jobs / "jobs.txt").write_text("j1 0\n")
+    dbd = tmp_path / "db"  # the DB under its vf6 and m3 names
+    dbd.mkdir()
+    for prefix in ("db_", "mitochondria_"):
+        for src, dst in (("bData10.txt", "data.txt"), ("btree_10.txt", "tree.txt"),
+                         ("probes10.txt.gz", "probes.txt.gz")):
+            shutil.copy(world["dbdir"] / src, dbd / (prefix + dst))
+    legacy = ["--engine", "legacy", "--device", "cpu"]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(["classify-jobs", "-name", "db", "-jname", "jobs", "--root", str(tmp_path)]
+                 + legacy)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(["classify-m3", "-wdir", str(dbd), "-f1", "none"] + legacy)
 
 
 def test_cuda_device_refused_without_cuda(world, tmp_path):
