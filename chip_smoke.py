@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py
 
-Builds the rank-compaction kernel from csrc/ and holds it bit for bit
-against its plain PyTorch version at the shapes of classify-nx and of the
-long-read lane; holds the engine on the card against the engine on the CPU,
-for short batches and for the long-read lane; then drives every classify
-path through the port's CLI:
+Builds the two kernels from csrc/ (one nvcc per source, started together)
+and holds each bit for bit against its plain PyTorch version: the window
+gate (gate.cu, both modes, both input forms) at the row shapes of
+classify-nx, of the long-read lane and of m3, and the rank compaction
+(compact.cu) at the shapes of classify-nx and of the long-read lane.  Holds
+the engine on the card against the engine on the CPU, for short batches and
+for the long-read lane, on a toy world made with the port's own host
+modules; then drives every classify path through the port's CLI:
 
 * ``classify-nx`` against a 33M-probe fingerprint DB: a small sample checked
   against the reference simulator (tests/refsim.py), a 500,000-read sample
@@ -69,6 +72,26 @@ REPORT_DENSITY = 0.03
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+KERNELS = ("window_gate", "window_extract", "compact_ranks")
+
+
+def _wrappers() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from kmer_id_tpu_torch.ops.compact import compact_ranks_cuda
+    from kmer_id_tpu_torch.ops.gate import extract_cuda, window_gate_cuda
+
+    return dict(zip(KERNELS, (window_gate_cuda, extract_cuda, compact_ranks_cuda)))
+
+
+def reset_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def card_line() -> str:
@@ -193,23 +216,230 @@ def kernel_phase(device="cuda") -> dict:
 
             k_dev, p_dev = device_ms(kern), device_ms(plain)
             k_call, p_call = call_ms(kern), call_ms(plain)
+            # the validity plane read once, the payloads (pos, cand, two
+            # extras) only at the placed columns, the outputs written once
+            placed = int(want[2].clamp(max=mh).sum())
+            b_ms, b_by = bound(b * c + 16 * placed + b * mh * 16 + b * 4, b * c)
             say(f"kernel {name} [{b}x{c}] mh={mh} density={d}: bit-equal; device "
-                f"kernel {k_dev} ms, plain {p_dev} ms; per call kernel {k_call} ms, "
-                f"plain {p_call} ms")
+                f"kernel {k_dev} ms, plain {p_dev} ms, bound {b_ms} ms ({b_by}); per call "
+                f"kernel {k_call} ms, plain {p_call} ms")
             if d == REPORT_DENSITY:
-                report[name] = (k_dev, p_dev)
+                report[name] = (k_dev, p_dev, b_ms, b_by)
+    return {"max_abs_err": max_err, "times": report}
+
+
+# ------------------------------------------------------------ gate phase
+
+# H100 SXM peaks from NVIDIA's data sheet: device memory, and 32-bit
+# operations outside the tensor cores (its fp32 rate)
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+GATE_OPS_PER_WINDOW = 80  # key, validity, two hashes, four bit tests, rank
+BLOOM_BLOCKS = 1 << 22  # 67 MB of 16-byte blocks: the 33M-probe DB's filter
+# (shape name, rows, row width, read lengths [lo, hi]); m3's rows are the
+# mitokmer CLI's 2048 x 512 holding 100-300 bp reads
+GATE_SHAPES = (
+    ("nx", BATCH, MAX_LEN, (100, 151)),
+    ("lane", JOB_BATCH, JOB_MAX_LEN, (JOB_MAX_LEN, JOB_MAX_LEN + 1)),
+    ("m3", JOB_BATCH, JOB_MAX_LEN, (100, 301)),
+)
+
+
+def bound(nbytes: float, nops: float) -> tuple[float, str]:
+    """(least milliseconds, "bytes" or "operations") on one H100 for work
+    that moves ``nbytes`` and does ``nops`` 32-bit operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def gate_bloom(rng):
+    """A random block-Bloom table of BLOOM_BLOCKS rows with a quarter of its
+    bits set (a random window passes with probability 1/256, about the
+    8-keys-per-block filter's rate), and two salts."""
+    words = (rng.integers(0, 2**32, size=(BLOOM_BLOCKS, 4), dtype=np.uint64)
+             & rng.integers(0, 2**32, size=(BLOOM_BLOCKS, 4), dtype=np.uint64))
+    return words.astype(np.uint32), int(rng.integers(1, 2**32)), int(rng.integers(1, 2**32))
+
+
+def gate_rows(rng, b, l, lens, bloom, s4, s5):
+    """Read rows for the gate: random bases with N runs, invalid bases at
+    both row ends, lengths below KSIZE and equal to the width, a planted
+    probe in every third row and two probe-dense rows (every window's Bloom
+    bits set: npass > 12).  Sets those probes' bits in ``bloom``.  Returns
+    (codes uint8 [b, l], lengths int32 [b])."""
+    from kmer_id_tpu_torch.core.codec import KSIZE, canonical_kmers
+    from kmer_id_tpu_torch.db.fpdb import bloom_hashes
+
+    codes = rng.integers(0, 4, size=(b, l), dtype=np.uint8)
+    lengths = rng.integers(lens[0], lens[1], size=b).astype(np.int32)
+    lengths[:6] = (0, 5, KSIZE - 1, KSIZE, KSIZE + 1, l)
+    lengths[6:10] = l
+    # N runs and invalid read ends, few enough (<= ~650 bases) for the
+    # packed form's exception list (EXC_CAP)
+    for r in rng.choice(np.arange(12, b), size=min(b // 40, 12), replace=False):
+        p = int(rng.integers(0, l))
+        codes[r, p : p + int(rng.integers(1, 40))] = 4
+    ends = rng.choice(np.arange(12, b), size=min(b // 100, 80), replace=False)
+    codes[ends, np.maximum(lengths[ends] - 1, 0)] = 4  # last base of the read
+    codes[ends, 0] = 4
+    codes[8, l - 1] = 4  # rows as wide as the plane, invalid at the plane's end
+    codes[9, [0, l - 1]] = 4
+    keys = [canonical_kmers(codes[r])[0] for r in (6, 7)]  # probe-dense rows
+    for r in range(12, b, 3):
+        p = int(rng.integers(0, max(int(lengths[r]) - KSIZE, 1)))
+        k = canonical_kmers(codes[r, p : p + KSIZE])[0]
+        keys.append(k)
+    keys = np.concatenate(keys)
+    hi = (keys >> np.uint64(32)).astype(np.uint32)
+    lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    blk, bits = bloom_hashes(hi, lo, len(bloom), s4, s5)
+    flat = bloom.reshape(-1)
+    for bit in bits:
+        np.bitwise_or.at(flat, blk * 4 + (bit >> 5), np.uint32(1) << (bit & 31).astype(np.uint32))
+    return codes, lengths
+
+
+def gate_forms(rng, codes, lengths, device):
+    """The rows as ReadPlanes in both input forms: packed words with the
+    exception list in shuffled order, plus two entries the feeder never
+    writes (a base past its row's length, and one past the plane, which
+    lands on the last base); and the code plane, with invalid bases of
+    values 4, 5 and 255."""
+    import torch
+
+    from kmer_id_tpu_torch.io.batch import pack_codes
+    from kmer_id_tpu_torch.ops.gate import ReadPlanes
+
+    b, l = codes.shape
+    packed, exc = pack_codes(codes, lengths)
+    if packed is None:
+        raise AssertionError("gate rows hold more invalid bases than the exception list")
+    pads = np.nonzero(exc < 0)[0]
+    short = int(np.nonzero(lengths < l - 1)[0][0])
+    exc[pads[:2]] = (short * l + l - 1, b * l + 7)
+    rng.shuffle(exc)
+    plane = codes.copy()
+    bad = plane >= 4
+    plane[bad] = rng.choice(np.array([4, 5, 255], np.uint8), size=int(bad.sum()))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    lens = t(lengths)
+    return {
+        "packed": ReadPlanes(lens, l, packed=t(packed.view(np.int32)), exc=t(exc)),
+        "codes": ReadPlanes(lens, l, codes=t(plane)),
+    }
+
+
+def gate_phase(device="cuda") -> dict:
+    """csrc/gate.cu against its plain version, bit for bit, in both modes and
+    both input forms at the nx, long-lane and m3 shapes; device times of
+    the kernel and the plain version beside the bound.  Returns the
+    numbers for the kernels line (nx shape, packed form)."""
+    import torch
+
+    from kmer_id_tpu_torch.ops.gate import (
+        BLOOM_K,
+        extract_cuda,
+        extract_plain,
+        window_gate_cuda,
+        window_gate_plain,
+    )
+    from kmer_id_tpu_torch.ops.words import u32_tensor
+
+    rng = np.random.default_rng(SEED + 3)
+    bloom_np, s4, s5 = gate_bloom(rng)
+    max_err, report = 0, {}
+    for name, b, l, lens in GATE_SHAPES:
+        codes, lengths = gate_rows(rng, b, l, lens, bloom_np, s4, s5)
+        db = {"bloom": u32_tensor(bloom_np, device), "fp_s4": s4, "fp_s5": s5}
+        for form, reads in gate_forms(rng, codes, lengths, device).items():
+            got_g = window_gate_cuda(db, reads)
+            want_g = window_gate_plain(db, reads)
+            got_x = extract_cuda(reads)
+            want_x = extract_plain(reads)
+            torch.cuda.synchronize()
+            pairs = list(zip(("wpos", "whi", "wlo", "npass"), got_g, want_g))
+            pairs += [(k, got_x[k], want_x[k]) for k in ("hi", "lo", "valid")]
+            for what, g, w in pairs:
+                err = int((g.long() - w.long()).abs().max())
+                max_err = max(max_err, err)
+                if not torch.equal(g, w):
+                    raise AssertionError(f"gate.cu != plain at {name} {form}: {what} "
+                                         f"(max err {err})")
+            npass = want_g[3]
+            valid = int(want_x["valid"].sum())
+            if int(npass.max()) <= BLOOM_K or int((npass > 0).sum()) < b // 4:
+                raise AssertionError(f"gate rows at {name}: no probe-dense or too few passing rows")
+            out_bytes = b * (3 * BLOOM_K + 1) * 4
+            in_bytes = lengths.nbytes + (
+                reads.packed.numel() * 4 + reads.exc.numel() * 4 if form == "packed"
+                else reads.codes.numel())
+            p = l - 29
+            g_bound = bound(in_bytes + 16 * valid + out_bytes, GATE_OPS_PER_WINDOW * b * p)
+            x_bound = bound(in_bytes + b * p * 9, GATE_OPS_PER_WINDOW // 2 * b * p)
+            times = {
+                "gate": (device_ms(lambda: window_gate_cuda(db, reads)),
+                         device_ms(lambda: window_gate_plain(db, reads)), *g_bound),
+                "extract": (device_ms(lambda: extract_cuda(reads)),
+                            device_ms(lambda: extract_plain(reads)), *x_bound),
+            }
+            for mode, (k_ms, p_ms, b_ms, b_by) in times.items():
+                say(f"gate.cu {mode} {name} [{b}x{l}] {form}: bit-equal ({valid} valid windows, "
+                    f"npass max {int(npass.max())}, {int((npass > 0).sum())} rows passing); "
+                    f"device kernel {k_ms} ms, plain {p_ms} ms, bound {b_ms} ms ({b_by})")
+                report[(mode, name, form)] = (k_ms, p_ms, b_ms, b_by)
     return {"max_abs_err": max_err, "times": report}
 
 
 # ---------------------------------------------------------- engine phase
 
 
+def toy_world(num_probes=4096, num_targ=64, batch=256, max_len=256, dense_rows=(),
+              long_len=0):
+    """A deterministic synthetic DB and read batch, made from the port's own
+    host modules: the probes are every canonical 30-mer of one random
+    genome, so a read copied from it has a probe at every window
+    (``dense_rows`` get such reads: the dense path and the overflow
+    replay); a third of the rows carry two planted probes, often of
+    incomparable targets (the fold).  ``long_len`` > 0 also returns that
+    many bases of the genome for the long-read lane.  Returns (packed DB,
+    taxonomy, codes uint8 [batch, max_len], lengths int32 [batch], genome
+    slice or None)."""
+    from kmer_id_tpu_torch.core.codec import KSIZE, canonical_kmers
+    from kmer_id_tpu_torch.core.taxonomy import Taxonomy
+    from kmer_id_tpu_torch.db.probes import ProbeRecords, pack_probes
+
+    rng = np.random.default_rng(42)
+    src = rng.integers(0, 4, size=num_probes + KSIZE, dtype=np.uint8)
+    keys = np.unique(canonical_kmers(src)[0])
+    n = len(keys)
+    rec = ProbeRecords(keys=keys, target=rng.integers(2, num_targ, size=n).astype(np.int32),
+                       org=np.zeros(n, np.int32), position=np.zeros(n, np.int32),
+                       fstrand=np.ones(n, bool), count=np.ones(n, np.int32))
+    packed = pack_probes(rec, num_targ=num_targ)
+    parent = np.ones(num_targ, dtype=np.int32)
+    for i in range(3, num_targ):
+        parent[i] = int(rng.integers(1, i))
+    codes = rng.integers(0, 4, size=(batch, max_len)).astype(np.uint8)
+    starts = rng.integers(0, len(src) - KSIZE, size=batch)
+    for r in range(0, batch, 3):
+        pos = int(rng.integers(0, max_len - 2 * KSIZE))
+        s, s2 = int(starts[r]), int(starts[(r + 7) % batch])
+        codes[r, pos : pos + KSIZE] = src[s : s + KSIZE]
+        codes[r, pos + KSIZE : pos + 2 * KSIZE] = src[s2 : s2 + KSIZE]
+    for r in dense_rows:
+        codes[r] = src[:max_len]
+    lengths = rng.integers(31, max_len + 1, size=batch).astype(np.int32)
+    lengths[list(dense_rows)] = max_len
+    genome = src[:long_len].copy() if long_len else None
+    return packed, Taxonomy(parent), codes, lengths, genome
+
+
 def toy_batches(codes, lengths, dense_rows, num_probes):
     """The toy world's batch (dense path, overflow replay) and a copy with
     the dense rows replaced and two rows of 10 probe windows (Bloom path,
     slow tier)."""
-    from kmer_id_tpu.core.codec import KSIZE
-    from kmer_id_tpu.io.batch import Batch, pack_codes
+    from kmer_id_tpu_torch.core.codec import KSIZE
+    from kmer_id_tpu_torch.io.batch import Batch, pack_codes
 
     src = np.random.default_rng(42).integers(0, 4, size=num_probes + KSIZE, dtype=np.uint8)
     b, l = codes.shape
@@ -230,13 +460,11 @@ def toy_batches(codes, lengths, dense_rows, num_probes):
 def engine_phase(device="cuda", num_probes=100_000, batch=1024, max_len=256) -> None:
     """FpClassifier on ``device`` vs on the CPU: finals, seen and ucount
     bit-equal on the toy world."""
-    sys.path.insert(0, ROOT)
-    from __graft_entry__ import _toy_world
-    from kmer_id_tpu.db.fpdb import build_fpdb
+    from kmer_id_tpu_torch.db.fpdb import build_fpdb
     from kmer_id_tpu_torch.engine.fpclassify import FpClassifier
 
     dense_rows = (5, batch - 3)
-    packed, tax, codes, lengths, _ = _toy_world(
+    packed, tax, codes, lengths, _ = toy_world(
         num_probes=num_probes, num_targ=256, batch=batch, max_len=max_len,
         dense_rows=dense_rows,
     )
@@ -294,13 +522,11 @@ def long_engine_phase(device="cuda", num_probes=100_000, max_len=JOB_MAX_LEN) ->
     seen and ucount bit-equal, at a group size of 256 rows (several groups,
     per-read finals on device) and of 32 rows (the genome copy's 62 rows
     exceed a group: the summary lane)."""
-    sys.path.insert(0, ROOT)
-    from __graft_entry__ import _toy_world
-    from kmer_id_tpu.db.fpdb import build_fpdb
-    from kmer_id_tpu.io.batch import LongRead
+    from kmer_id_tpu_torch.db.fpdb import build_fpdb
     from kmer_id_tpu_torch.engine.fpclassify import FpClassifier
+    from kmer_id_tpu_torch.io.batch import LongRead
 
-    packed, tax, _, _, genome = _toy_world(num_probes=num_probes, num_targ=256, batch=8,
+    packed, tax, _, _, genome = toy_world(num_probes=num_probes, num_targ=256, batch=8,
                                            max_len=max_len, long_len=num_probes)
     fpdb = build_fpdb(packed, tax)
     items = [LongRead(meta=None, codes=c) for c in long_reads(genome)]
@@ -346,9 +572,9 @@ def make_db(rng, n_probes, num_targ, db_dir, cache_dir):
     """Random canonical 30-mer probes on random targets of a random tree,
     written straight into the packed and fingerprint caches (no probe
     text).  Returns (sorted keys, targets, parent list)."""
-    from kmer_id_tpu.core.taxonomy import Taxonomy
-    from kmer_id_tpu.db.fpdb import build_fpdb, save_fpdb
-    from kmer_id_tpu.db.probes import ProbeRecords, pack_probes, save_packed
+    from kmer_id_tpu_torch.core.taxonomy import Taxonomy
+    from kmer_id_tpu_torch.db.fpdb import build_fpdb, save_fpdb
+    from kmer_id_tpu_torch.db.probes import ProbeRecords, pack_probes, save_packed
 
     parent = np.ones(num_targ, dtype=np.int32)
     for i in range(3, num_targ):
@@ -413,7 +639,7 @@ def probe_dict(keys, targets, records, u_is_t: bool) -> dict:
     lookup restricted to the keys it can meet, in place of a 33M-entry dict
     or a binary search per window.  The sequences are joined with an
     invalid base between them, so no window spans two records."""
-    from kmer_id_tpu.core.codec import CODE_LUT, CODE_LUT_U, canonical_kmers
+    from kmer_id_tpu_torch.core.codec import CODE_LUT, CODE_LUT_U, canonical_kmers
 
     lut = CODE_LUT_U if u_is_t else CODE_LUT
     text = b"\n".join(seq.encode("latin-1") for _, seq, _ in records)
@@ -445,10 +671,8 @@ def nx_phase(device="cuda", n_probes=N_PROBES, big=BIG_READS, small=SMALL_READS,
     import torch
 
     sys.path.insert(0, ROOT)
-    from kmer_id_tpu.io.fastx import iter_fastq_gz
+    from kmer_id_tpu_torch.io.fastx import iter_fastq_gz
     from kmer_id_tpu_torch import cli
-    from kmer_id_tpu_torch.ops.compact import compact_ranks_cuda
-
     RefSim = repo_refsim()
 
     rng = np.random.default_rng(SEED)
@@ -469,13 +693,13 @@ def nx_phase(device="cuda", n_probes=N_PROBES, big=BIG_READS, small=SMALL_READS,
     argv = ["classify-nx", fq, "--db-dir", db_dir, "--cache-dir", cache,
             "--num-targ", str(NUM_TARG), "--batch-size", str(batch),
             "--max-len", str(max_len), "--device", device, "--metrics", metrics]
-    compact_ranks_cuda.launches = 0
+    reset_counts()
     if device != "cpu":
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rc = cli.main(argv)
     run_s = time.perf_counter() - t0
-    launches = compact_ranks_cuda.launches
+    launches = read_counts()
     if rc != 0:
         raise AssertionError(f"classify-nx exited {rc}")
     peak = torch.cuda.max_memory_allocated() if device != "cpu" else 0
@@ -504,22 +728,23 @@ def nx_phase(device="cuda", n_probes=N_PROBES, big=BIG_READS, small=SMALL_READS,
     if reads != 2 * big or gsum != reads:
         raise AssertionError(f"big sample: reads {reads}, sum(gcount) {gsum}, "
                              f"expected {2 * big}")
-    from kmer_id_tpu.core.taxonomy import Taxonomy
-    from kmer_id_tpu.db.fpdb import build_tinfo, load_fpdb
+    from kmer_id_tpu_torch.core.taxonomy import Taxonomy
+    from kmer_id_tpu_torch.db.fpdb import build_tinfo, load_fpdb
 
     fp = load_fpdb(cache)
     tax = Taxonomy(np.asarray(parent, np.int32))
     tables = (fp.fptab, fp.fptab2, fp.rec, fp.bloom, build_tinfo(tax), tax.chain_tables()[0])
     table_bytes = sum(a.nbytes for a in tables if a is not None)
+    prof = {}
     if device != "cpu":
-        profile_phase(device, db_dir, cache, os.path.join(fq, "big_R1_tr.fastq.gz"),
-                      batch, max_len)
+        prof = profile_phase(device, db_dir, cache, os.path.join(fq, "big_R1_tr.fastq.gz"),
+                             batch, max_len)
     return {
         "reads": reads, "wall_s": m["big"]["wall_s"],
         "reads_per_s": m["big"]["reads_per_s"], "classified": m["big"]["classified"],
         "small_wall_s": m["small"]["wall_s"], "cli_s": run_s,
         "launches": launches, "table_bytes": table_bytes, "seen_bytes": fp.n_slots + 1,
-        "peak_bytes": peak, "n_probes": len(keys),
+        "peak_bytes": peak, "n_probes": len(keys), "profile": prof,
         "db": (keys, targets, parent, db_dir, cache, plant),
     }
 
@@ -588,11 +813,9 @@ def jobs_phase(device, db, work=WORK, batch=JOB_BATCH, max_len=JOB_MAX_LEN,
     process_long_many on the decoded contigs (engine level)."""
     import torch
 
-    from kmer_id_tpu.config import ClassifyConfig
-    from kmer_id_tpu.io.fastx import iter_fasta_plain, iter_fastq_gz
+    from kmer_id_tpu_torch.config import ClassifyConfig
+    from kmer_id_tpu_torch.io.fastx import iter_fasta_plain, iter_fastq_gz
     from kmer_id_tpu_torch import cli
-    from kmer_id_tpu_torch.ops.compact import compact_ranks_cuda
-
     RefSim = repo_refsim()
     keys, targets, parent, db_dir, cache, plant = db
     rng = np.random.default_rng(SEED + 1)
@@ -612,18 +835,18 @@ def jobs_phase(device, db, work=WORK, batch=JOB_BATCH, max_len=JOB_MAX_LEN,
 
     engine = ["--batch-size", str(batch), "--max-len", str(max_len), "--cache-dir", cache,
               "--device", device]
-    launches = 0
+    launches = dict.fromkeys(KERNELS, 0)
     for jname, job, target in (("jobs_mixed", "mixed", 0), ("jobs_target", "target", t_one)):
         os.makedirs(os.path.join(root, jname))
         with open(os.path.join(root, jname, jname + ".txt"), "w") as f:
             f.write(f"{job} 2\n{fq}\n{fa}\n")
-        compact_ranks_cuda.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         rc = cli.main(["classify-jobs", "-name", "bact", "-jname", jname, "--root", root,
                        "-target", str(target)] + engine)
         if rc != 0:
             raise AssertionError(f"classify-jobs exited {rc}")
-        launches += compact_ranks_cuda.launches
+        launches = {k: n + read_counts()[k] for k, n in launches.items()}
         say(f"jobs: classify-jobs job {job} ran in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -665,10 +888,10 @@ def timed_long_job(device, rng, root, keys, plant, cache, batch, max_len, mbase)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from kmer_id_tpu.config import ClassifyConfig
-    from kmer_id_tpu.core.codec import CODE_LUT_U
-    from kmer_id_tpu.io.batch import LongRead
-    from kmer_id_tpu.io.native_feed import NativePlaneFeeder
+    from kmer_id_tpu_torch.config import ClassifyConfig
+    from kmer_id_tpu_torch.core.codec import CODE_LUT_U
+    from kmer_id_tpu_torch.io.batch import LongRead
+    from kmer_id_tpu_torch.io.native_feed import NativePlaneFeeder
     from kmer_id_tpu_torch.engine.pipeline import load_db, make_classifier, run_vf6
 
     seqs, total = [], 0
@@ -741,10 +964,9 @@ def m3_phase(device, work=WORK, n_probes=MITO_PROBES, num_targ=MITO_TARG,
     (``num_targ`` targets, ``n_probes`` probes, a 7-column refkey): reads of
     100-300 bp plus 1% of 600-2,000 bp with ``f2`` ``none``, then again with
     a FASTQ ``f2``; result.txt against the reference simulator each time."""
-    from kmer_id_tpu.db.probes import ProbeRecords, write_probes_text
-    from kmer_id_tpu.io.fastx import iter_fasta_plain, iter_fastq_plain
+    from kmer_id_tpu_torch.db.probes import ProbeRecords, write_probes_text
+    from kmer_id_tpu_torch.io.fastx import iter_fasta_plain, iter_fastq_plain
     from kmer_id_tpu_torch import cli
-    from kmer_id_tpu_torch.ops.compact import compact_ranks_cuda
 
     RefSim = repo_refsim()
     rng = np.random.default_rng(SEED + 2)
@@ -799,15 +1021,15 @@ def m3_phase(device, work=WORK, n_probes=MITO_PROBES, num_targ=MITO_TARG,
     fq_records = list(iter_fastq_plain(fq2))
     probes = probe_dict(keys, targets, fa_records + fq_records, True)
     sim = RefSim(probes, parent.tolist(), num_targ=num_targ, u_is_t=True, variant="m3")
-    launches = 0
+    launches = dict.fromkeys(KERNELS, 0)
     for f2, recs in (("none", fa_records), (fq2, fq_records)):
         out = os.path.join(work, "mito_out")
-        compact_ranks_cuda.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         rc = cli.main(["mitokmer", "-w", w, "-d", out, "-i", fa, f2, "--device", device])
         if rc != 0:
             raise AssertionError(f"mitokmer exited {rc}")
-        launches += compact_ranks_cuda.launches
+        launches = {k: n + read_counts()[k] for k, n in launches.items()}
         run_s = time.perf_counter() - t0
         sim.feed(recs)  # f2 given: the same sample, fed on after f1
         with open(os.path.join(w, "result.txt")) as f:
@@ -835,9 +1057,9 @@ def profile_phase(device, db_dir, cache, fastq_path, batch, max_len, n_batches=8
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from kmer_id_tpu.config import ClassifyConfig
-    from kmer_id_tpu.io.batch import ReadBatcher
-    from kmer_id_tpu.io.fastx import iter_fastq_gz
+    from kmer_id_tpu_torch.config import ClassifyConfig
+    from kmer_id_tpu_torch.io.batch import ReadBatcher
+    from kmer_id_tpu_torch.io.fastx import iter_fastq_gz
     from kmer_id_tpu_torch.engine.pipeline import load_db, make_classifier
 
     db = load_db(os.path.join(db_dir, "bData10.txt"), os.path.join(db_dir, "btree_10.txt"),
@@ -865,9 +1087,11 @@ def profile_phase(device, db_dir, cache, fastq_path, batch, max_len, n_batches=8
                  key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     nb = len(items) - 1
+    per_batch = sum(e.count for e in dev) / nb
     say(f"profile: {nb} batches of {batch}x{max_len}: wall {wall * 1e3 / nb} ms/batch "
         f"unprofiled; device busy {busy_ms / nb} ms/batch "
-        f"({100 * busy_ms / (wall * 1e3)}% of the wall time)")
+        f"({100 * busy_ms / (wall * 1e3)}% of the wall time), {per_batch} device "
+        f"launches/batch")
     for e in dev[:12]:
         say(f"  device {e.self_device_time_total / 1e3 / nb:.4f} ms/batch  "
             f"{e.count / nb:.1f} calls/batch  {e.key[:90]}")
@@ -877,7 +1101,8 @@ def profile_phase(device, db_dir, cache, fastq_path, batch, max_len, n_batches=8
         say(f"  op {e.device_time_total / 1e3 / nb:.4f} ms/batch device, "
             f"{e.cpu_time_total / 1e3 / nb:.4f} ms/batch host  {e.count / nb:.1f} calls/batch  "
             f"{e.key}")
-    return {"wall_ms_per_batch": wall * 1e3 / nb, "busy_ms_per_batch": busy_ms / nb}
+    return {"wall_ms_per_batch": wall * 1e3 / nb, "busy_ms_per_batch": busy_ms / nb,
+            "launches_per_batch": per_batch}
 
 
 def main() -> int:
@@ -890,17 +1115,22 @@ def main() -> int:
     card = card_line()
     say(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    from kmer_id_tpu_torch.kernels.build import build, load_compact
+    from kmer_id_tpu_torch.kernels.build import build_many, load_compact, load_gate
 
     t0 = time.perf_counter()
-    _, info = build("compact")
+    built = build_many(["compact", "gate"])  # one nvcc per source, together
     load_compact()
-    say(f"build: compact.cu built in {info['seconds']:.2f} s "
-        f"(phase {time.perf_counter() - t0:.2f} s)")
-    for line in info["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"  ptxas: {line.strip()}")
+    load_gate()
+    for name, (_, info) in built.items():
+        say(f"build: {name}.cu built in {info['seconds']:.2f} s")
+        for line in info["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                say(f"  ptxas {name}: {line.strip()}")
+    say(f"phase build: {time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
+    gr = gate_phase()
+    say(f"phase gate: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kr = kernel_phase()
     say(f"phase kernel: {time.perf_counter() - t0:.1f} s")
@@ -918,12 +1148,17 @@ def main() -> int:
     m3 = m3_phase("cuda")
     say(f"phase m3: {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(WORK, ignore_errors=True)
-    launches = {"nx": nx["launches"], "jobs": jobs["launches"], "m3": m3["launches"]}
-    for path, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"the {path} path launched the compaction kernel no time")
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    paths = {"nx": nx["launches"], "jobs": jobs["launches"], "m3": m3["launches"]}
+    by_kernel = {k: {path: n[k] for path, n in paths.items()} for k in KERNELS}
+    for k in ("window_gate", "compact_ranks"):
+        for path, n in by_kernel[k].items():
+            if n <= 0:
+                raise AssertionError(f"the {path} path launched {k} no time")
+    if sum(by_kernel["window_extract"].values()) <= 0:
+        raise AssertionError("no path launched the window gate's extract mode")
+    for name in ("jax", "kmer_id_tpu"):
+        if name in sys.modules:
+            raise AssertionError(f"{name} was imported")
     say(f"nx big sample: {nx['reads']} reads ({nx['classified']} classified) in "
         f"{nx['wall_s']:.3f} s = {nx['reads_per_s']:.1f} reads/s on {card} "
         f"(batch {BATCH}, max_len {MAX_LEN}, {nx['n_probes']} probes)")
@@ -932,16 +1167,33 @@ def main() -> int:
     say(f"long lane on {card} (batch {JOB_BATCH}, max_len {JOB_MAX_LEN}, "
         f"{nx['n_probes']} probes, {jobs['mbase']} Mbase of 2-50 kb contigs): driver "
         f"{jobs['driver_mbase_s']} Mbase/s, engine {jobs['engine_mbase_s']} Mbase/s")
-    say(f"compaction kernel launches by path: {launches}")
-    k_ms, p_ms = kr["times"]["bloom_gate"]
-    print(json.dumps({"kernels": [{
-        "name": "compact_ranks", "route": "cuda",
-        "source": "kmer_id_tpu_torch/csrc/compact.cu",
-        "replaces": "kmer_id_tpu/ops/compact.py:101",
-        "launches": sum(launches.values()), "launches_by_path": launches,
-        "max_abs_err": kr["max_abs_err"], "ms": k_ms, "plain_ms": p_ms,
-        "shapes": {name: {"ms": t[0], "plain_ms": t[1]} for name, t in kr["times"].items()},
-    }]}))
+    say(f"kernel launches by path: {by_kernel}")
+
+    def entry(name, source, replaces, times, max_err, shapes):
+        k_ms, p_ms, b_ms, b_by = times
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(by_kernel[name].values()),
+                "launches_by_path": by_kernel[name], "max_abs_err": max_err,
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None, "shapes": shapes}
+
+    def shape_times(t):
+        return {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3]}
+
+    gate_src = "kmer_id_tpu_torch/csrc/gate.cu"
+    print(json.dumps({"kernels": [
+        entry("window_gate", gate_src, "kmer_id_tpu/ops/compact.py:101",
+              gr["times"][("gate", "nx", "packed")], gr["max_abs_err"],
+              {f"{n} {f}": shape_times(t) for (m, n, f), t in gr["times"].items()
+               if m == "gate"}),
+        entry("window_extract", gate_src, "kmer_id_tpu/ops/extract.py:34",
+              gr["times"][("extract", "nx", "packed")], gr["max_abs_err"],
+              {f"{n} {f}": shape_times(t) for (m, n, f), t in gr["times"].items()
+               if m == "extract"}),
+        entry("compact_ranks", "kmer_id_tpu_torch/csrc/compact.cu",
+              "kmer_id_tpu/ops/compact.py:101", kr["times"]["fast_tier"], kr["max_abs_err"],
+              {name: shape_times(t) for name, t in kr["times"].items()}),
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,8 +18,8 @@ import argparse
 import os
 import sys
 
-from kmer_id_tpu.config import ClassifyConfig
-from kmer_id_tpu.utils.logging import set_verbosity
+from kmer_id_tpu_torch.config import ClassifyConfig
+from kmer_id_tpu_torch.utils.logging import set_verbosity
 
 
 def _add_engine_args(p):
@@ -135,7 +135,7 @@ def main(argv=None):
         if args.cmd == "classify-m3":
             run_m3(args.wdir, args.f1, args.f2, cfg=cfg, device=args.device)
             return 0
-        from kmer_id_tpu.report.rollup import m3_report
+        from kmer_id_tpu_torch.report.rollup import m3_report
 
         wdir = args.wdir + "/"
         run_m3(wdir, args.inputs[0], args.inputs[1], cfg=cfg, device=args.device)
@@ -149,7 +149,7 @@ def main(argv=None):
         return 0
 
     if args.cmd == "readc":
-        from kmer_id_tpu.report.rollup import readc_report
+        from kmer_id_tpu_torch.report.rollup import readc_report
 
         wdir = _run_jobs(args.folder, args.jobs_name, args)
         jdir = os.path.join(args.root, args.jobs_name)

@@ -3,8 +3,8 @@
 Port of ``kmer_id_tpu/engine/fpclassify.py``: the short-read path and the
 long-read lane.  Per batch of short reads:
 
-    packed 2-bit bases -> unpack -> extract (hi, lo, valid) [B, P]
-      -> block-Bloom gate -> passing windows rank-compacted to BLOOM_K
+    packed 2-bit bases -> window gate (ops/gate.py: keys, validity,
+      block-Bloom test, passing windows rank-compacted to BLOOM_K)
       -> fingerprint candidates (L1 + two L2 rows) -> candidates
       rank-compacted in window order (two-tier budget) -> verify against
       the full key in ``rec`` -> (node, tout) from ``tinfo`` -> final call
@@ -42,20 +42,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kmer_id_tpu.core.codec import INVALID, KSIZE
-from kmer_id_tpu.core.taxonomy import Taxonomy
-from kmer_id_tpu.db.fpdb import FpDB, build_fpdb, build_tinfo
-from kmer_id_tpu.db.probes import PackedDB
-from kmer_id_tpu.io.batch import Batch, LongRead, pack_codes
+from kmer_id_tpu_torch.core.codec import INVALID, KSIZE
+from kmer_id_tpu_torch.core.taxonomy import Taxonomy
+from kmer_id_tpu_torch.db.fpdb import FpDB, build_fpdb, build_tinfo
+from kmer_id_tpu_torch.db.probes import PackedDB
+from kmer_id_tpu_torch.io.batch import Batch, LongRead, pack_codes
 from kmer_id_tpu_torch.engine.host import PendingBatch, fold_host, fold_host_many
 from kmer_id_tpu_torch.ops.compact import SENT, compact_ranks, interleave_planes
-from kmer_id_tpu_torch.ops.extract import extract_kmers, unpack_codes
 from kmer_id_tpu_torch.ops.fold import fold_targets_chain
-from kmer_id_tpu_torch.ops.lookup import bloom_pass, fp_candidates
+from kmer_id_tpu_torch.ops.gate import BLOOM_K, ReadPlanes, extract, window_gate
+from kmer_id_tpu_torch.ops.lookup import fp_candidates
 from kmer_id_tpu_torch.ops.words import u32_tensor
 
 FAST_HITS = 8  # fast verify tier's candidate budget
-BLOOM_K = 12  # per-read budget of Bloom-passing windows
 LONG_HITS = 8  # long-read lane: per-chunk verified-hit budget
 _INT32_MIN, _INT32_MAX = -(2**31), 2**31 - 1
 _WORD_TABLES = ("fptab", "fptab2", "rec", "bloom")
@@ -127,12 +126,11 @@ def _cv_tier(db, hi_ilv, lo_ilv, cand_ilv, valid_ilv, pos_ilv, mh: int,
     return tuple(_pad_cols(x, out_mh - mh) for x in (cand32, ver, tin, tout, depth, t))
 
 
-def _compact_verify(db, ex, max_hits: int, seen=None):
-    """Candidate compaction + two-tier verify (see the JAX engine's
-    ``_compact_verify``); returns a dict of per-read tensors."""
-    hi, lo, valid = ex["hi"], ex["lo"], ex["valid"]
-    b, p = hi.shape
-    dev = hi.device
+def _compact_verify(db, reads: ReadPlanes, max_hits: int, seen=None):
+    """Window gate + candidate compaction + two-tier verify (see the JAX
+    engine's ``_compact_verify``) of a batch's read rows; returns a dict of
+    per-read tensors."""
+    dev = reads.device
 
     def tiered(qhi, qlo, cand_ilv, valid_ilv, pos_ilv):
         k = cand_ilv.shape[1] // qhi.shape[1]
@@ -144,34 +142,31 @@ def _compact_verify(db, ex, max_hits: int, seen=None):
             return _cv_tier(*args, FAST_HITS, max_hits, seen), ncand
         return _cv_tier(*args, max_hits, max_hits, seen), ncand
 
-    def full_planes():
-        ci, vi = interleave_planes(fp_candidates(db, hi, lo, valid))
+    def full_planes(ex):
+        ci, vi = interleave_planes(fp_candidates(db, ex["hi"], ex["lo"], ex["valid"]))
         pos_ilv = (torch.arange(ci.shape[1], device=dev, dtype=torch.int32) // 3)[None]
         return ci, vi, pos_ilv
 
     if "bloom" in db:
-        bloomed = bloom_pass(db, hi, lo, valid)
-        npass = bloomed.sum(dim=1, dtype=torch.int32)
+        wpos, whi, wlo, npass = window_gate(db, reads)
         if int(npass.max()) > BLOOM_K:  # host branch 1: dense path
-            ci, vi, pos_ilv = full_planes()
-            k = ci.shape[1] // p
+            ex = extract(reads)
+            hi, lo = ex["hi"], ex["lo"]
+            ci, vi, pos_ilv = full_planes(ex)
+            k = ci.shape[1] // hi.shape[1]
             ncand = vi.sum(dim=1, dtype=torch.int32)
             res = _cv_tier(db, hi.repeat_interleave(k, dim=1),
                            lo.repeat_interleave(k, dim=1), ci, vi, pos_ilv,
                            max_hits, max_hits, seen)
         else:
-            iota_p = torch.arange(p, device=dev, dtype=torch.int32)[None]
-            wpos, _, _, (whi, wlo) = compact_ranks(
-                iota_p.expand(b, p).contiguous(), bloomed, iota_p, BLOOM_K,
-                extras=(hi, lo),
-            )
             wvalid = wpos < SENT
             wp = torch.where(wvalid, wpos, 0)
             planes = fp_candidates(db, whi, wlo, wvalid)
             ci, vi = interleave_planes(planes)
             res, ncand = tiered(whi, wlo, ci, vi, wp.repeat_interleave(len(planes), dim=1))
     else:
-        res, ncand = tiered(hi, lo, *full_planes())
+        ex = extract(reads)
+        res, ncand = tiered(ex["hi"], ex["lo"], *full_planes(ex))
     cand, ver, tin, tout, depth, t = res
     j = torch.where(ver, depth, -1).argmax(dim=1, keepdim=True)  # deepest hit
     dtin = tin.gather(1, j)
@@ -195,20 +190,20 @@ def _summary_plane(cv):
     return torch.cat([deepest[:, None], nh[:, None], flags[:, None], slots], dim=1)
 
 
-def fp_summary(db, ex, max_hits: int):
+def fp_summary(db, reads: ReadPlanes, max_hits: int):
     """Candidate compaction + verify + the per-read summary plane.  Kept for
     parity with the JAX package's ``mode="summary"`` dispatch; no path of the
     port calls it (the lane uses :func:`fp_summary_seen`)."""
-    return _summary_plane(_compact_verify(db, ex, max_hits))
+    return _summary_plane(_compact_verify(db, reads, max_hits))
 
 
-def fp_summary_seen(db, ex, seen, max_hits: int):
+def fp_summary_seen(db, reads: ReadPlanes, seen, max_hits: int):
     """:func:`fp_summary` that also marks the verified slots in ``seen`` (in
     place)."""
-    return _summary_plane(_compact_verify(db, ex, max_hits, seen))
+    return _summary_plane(_compact_verify(db, reads, max_hits, seen))
 
 
-def fp_long_finals(db, ex, seg, seen, n_segs: int, max_hits: int):
+def fp_long_finals(db, reads: ReadPlanes, seg, seen, n_segs: int, max_hits: int):
     """Long-read lane: per-read finals on device from chunk rows.
 
     ``seg`` [rows] maps each chunk row to its read (a read's rows are
@@ -220,7 +215,7 @@ def fp_long_finals(db, ex, seg, seen, n_segs: int, max_hits: int):
     segment without rows is consistent with no hits.  Marks ``seen`` in
     place.  Returns (finals int32 [n_segs], summary int32 [rows, 3 + mh]).
     """
-    cv = _compact_verify(db, ex, max_hits, seen)
+    cv = _compact_verify(db, reads, max_hits, seen)
     ver, tin, tout, depth = cv["ver"], cv["tin"], cv["tout"], cv["depth"]
     dev = ver.device
     seg = seg.to(device=dev, dtype=torch.long)
@@ -242,12 +237,12 @@ def fp_long_finals(db, ex, seg, seen, n_segs: int, max_hits: int):
     return finals, _summary_plane(cv)
 
 
-def fp_finals(db, ex, seen, max_hits: int):
+def fp_finals(db, reads: ReadPlanes, seen, max_hits: int):
     """Per-read final call on device: the deepest hit's target for
     consistent reads, the ordered msca fold for the rest, bit 30 for
     candidate overflow.  Marks verified slots in ``seen`` (in place).
     Returns int32 [B]."""
-    cv = _compact_verify(db, ex, max_hits, seen)
+    cv = _compact_verify(db, reads, max_hits, seen)
     nh, consistent = cv["nh"], cv["consistent"]
     finals = torch.where(nh > 0, cv["dtgt"], 0)
     # host branch 3: the fold only when some read is inconsistent (a read
@@ -261,9 +256,10 @@ def fp_finals(db, ex, seen, max_hits: int):
     return torch.where(cv["overflow"], finals | (1 << 30), finals)
 
 
-def fp_slots(db, ex):
+def fp_slots(db, reads: ReadPlanes):
     """Per-window verified slot ids (int32 [B, P], -1 = miss): the exact
     replay for candidate-overflow reads."""
+    ex = extract(reads)
     hi, lo = ex["hi"], ex["lo"]
     rec = db["rec"]
     out = torch.full_like(hi, -1)
@@ -322,22 +318,23 @@ class FpClassifier:
         (the reference's ``kmer_seen.clear()``, ``newkmer_10nx.cpp:1019``)."""
         return torch.zeros(self.fpdb.n_slots + 1, dtype=torch.int8, device=self.device)
 
-    def _extract(self, batch: Batch) -> dict:
+    def _reads(self, batch: Batch) -> ReadPlanes:
+        """The batch's rows on the device: its packed words and exception
+        list when it has them (the rows' width is the code plane's, or
+        ``max_len`` for a batch that ships none), else its code plane."""
         dev = self.device
         lengths = torch.from_numpy(np.ascontiguousarray(batch.lengths, np.int32)).to(dev)
         if batch.packed is not None:
             l = batch.codes.shape[1] if batch.codes is not None else self.max_len
-            codes = unpack_codes(
-                u32_tensor(batch.packed, dev),
-                torch.from_numpy(np.ascontiguousarray(batch.exc, np.int32)).to(dev),
-                l,
+            return ReadPlanes(
+                lengths, l, packed=u32_tensor(batch.packed, dev),
+                exc=torch.from_numpy(np.ascontiguousarray(batch.exc, np.int32)).to(dev),
             )
-        else:
-            codes = torch.from_numpy(np.ascontiguousarray(batch.codes, np.uint8)).to(dev)
-        return extract_kmers(codes, lengths)
+        codes = torch.from_numpy(np.ascontiguousarray(batch.codes, np.uint8)).to(dev)
+        return ReadPlanes(lengths, codes.shape[1], codes=codes)
 
     def submit_batch(self, seen, batch: Batch):
-        finals = fp_finals(self._db, self._extract(batch), seen, self.max_hits)
+        finals = fp_finals(self._db, self._reads(batch), seen, self.max_hits)
         return seen, PendingBatch(finals, batch, None, batch.n_rows)
 
     def _finish_collect(self, seen, arr: np.ndarray, pending: PendingBatch):
@@ -346,7 +343,7 @@ class FpClassifier:
         # candidate-overflow reads: exact per-window slot-plane replay
         ovr = np.nonzero(overflow)[0]
         if len(ovr):
-            plane_dev = fp_slots(self._db, self._extract(pending.codes))
+            plane_dev = fp_slots(self._db, self._reads(pending.codes))
             _scatter_plane_seen(seen, plane_dev)
             plane = plane_dev.cpu().numpy()
             for r in ovr:
@@ -431,7 +428,7 @@ class FpClassifier:
             k = int(row_item[g0 + n - 1]) - item0 + 1
             batch = self._row_batch(planes[rows], lens[rows])
             seg = torch.from_numpy(row_item[rows] - item0)
-            fin, summary = fp_long_finals(self._db, self._extract(batch), seg, seen, k, mh)
+            fin, summary = fp_long_finals(self._db, self._reads(batch), seg, seen, k, mh)
             runs.append((g0, n, item0, k, batch, fin, summary))
         fetched = torch.cat([r[5] for r in runs]).cpu().numpy()
         flag = (fetched & (1 << 30)) != 0
@@ -469,7 +466,7 @@ class FpClassifier:
         runs = []
         for g in range(0, len(row_item), bs):
             batch = self._row_batch(planes[g : g + bs], lens[g : g + bs])
-            runs.append((batch, fp_summary_seen(self._db, self._extract(batch), seen, mh)))
+            runs.append((batch, fp_summary_seen(self._db, self._reads(batch), seen, mh)))
         s = torch.cat([summary for _, summary in runs]).cpu().numpy()
         ovr_rows = np.nonzero(s[:, 2] & 2)[0]
         replay = {}
@@ -485,7 +482,7 @@ class FpClassifier:
         for its candidate-overflow ``rows``: {row: slots [P], -1 = miss}."""
         if len(rows) == 0:
             return {}
-        plane = fp_slots(self._db, self._extract(batch))
+        plane = fp_slots(self._db, self._reads(batch))
         _scatter_plane_seen(seen, plane)
         plane = plane.cpu().numpy()
         return {int(r): plane[int(r)] for r in rows}

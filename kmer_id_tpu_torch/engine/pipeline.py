@@ -21,19 +21,19 @@ from typing import Iterable, Optional, TextIO
 
 import numpy as np
 
-from kmer_id_tpu.config import ClassifyConfig
-from kmer_id_tpu.core.taxonomy import Taxonomy
-from kmer_id_tpu.db.metadata import StrainList, load_data_txt, load_tree_edges
-from kmer_id_tpu.db.probes import (
+from kmer_id_tpu_torch.config import ClassifyConfig
+from kmer_id_tpu_torch.core.taxonomy import Taxonomy
+from kmer_id_tpu_torch.db.metadata import StrainList, load_data_txt, load_tree_edges
+from kmer_id_tpu_torch.db.probes import (
     PackedDB,
     load_packed,
     pack_probes,
     parse_probes_text,
     save_packed,
 )
-from kmer_id_tpu.io.batch import LongRead, ReadBatcher
-from kmer_id_tpu.utils.logging import log
-from kmer_id_tpu.utils.timing import StageTimers
+from kmer_id_tpu_torch.io.batch import LongRead, ReadBatcher
+from kmer_id_tpu_torch.utils.logging import log
+from kmer_id_tpu_torch.utils.timing import StageTimers
 from kmer_id_tpu_torch.engine.fpclassify import FpClassifier
 
 LEGACY = "the legacy engine and minalign > 0 (ROADMAP.md §1 item 10)"
@@ -107,7 +107,7 @@ def make_classifier(db: LoadedDB, cfg: ClassifyConfig, cache_dir: str | None = N
         raise _not_ported(LEGACY)
     if len(db.packed) == 0:
         raise _not_ported(f"an empty probe DB, which needs {LEGACY}")
-    from kmer_id_tpu.db.fpdb import build_fpdb, load_fpdb, save_fpdb
+    from kmer_id_tpu_torch.db.fpdb import build_fpdb, load_fpdb, save_fpdb
 
     fp = None
     if cache_dir:
@@ -150,7 +150,7 @@ class SampleProcessor:
         target_reads_out: Optional[TextIO] = None,
         use_native: bool | None = None,
     ):
-        from kmer_id_tpu.io.native_feed import NativePlaneFeeder, native_available
+        from kmer_id_tpu_torch.io.native_feed import NativePlaneFeeder, native_available
 
         if cfg.minalign > 0:
             raise _not_ported(LEGACY)
@@ -184,8 +184,8 @@ class SampleProcessor:
                 for nb in self._feeder.feed_path(str(path), fmt=fmt):
                     self._classify_native(nb)
             return
-        from kmer_id_tpu.io import fastx
-        from kmer_id_tpu.io.native import detect_format
+        from kmer_id_tpu_torch.io import fastx
+        from kmer_id_tpu_torch.io.native import detect_format
 
         fmt = fmt or detect_format(str(path))
         iters = {
@@ -362,7 +362,7 @@ def run_nx(
         write_result(os.path.join(fastq_dir, prefix + "_result.txt"), result)
         log(f"sample {prefix}: {result.reads} reads")
         if metrics_path:
-            from kmer_id_tpu.utils.timing import write_metrics_json
+            from kmer_id_tpu_torch.utils.timing import write_metrics_json
 
             write_metrics_json(
                 metrics_path,

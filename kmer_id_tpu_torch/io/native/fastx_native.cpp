@@ -1,0 +1,344 @@
+// Native host decode path: FASTQ/FASTA (gz or plain) -> trimmed, 2-bit-packed
+// fixed-shape batches, exposed through a C ABI for ctypes.
+//
+// This is the framework's native IO runtime (the reference's C++ IO layer
+// analog — SURVEY.md §2 "Languages present"): the Python fallback parsers in
+// io/fastx.py define the behavioral contract (themselves mirroring the
+// reference parsers' record semantics, e.g. newkmer_10nx.cpp:762-913 and
+// kmer_read_vf6.cpp:831-870), and tests assert this implementation produces
+// identical batches.  Per record:
+//   * parse according to the format's quirks (4-phase counter that skips
+//     empty lines, first-token vs full-line fields, stale-token reuse),
+//   * PHRED trim (newkmer_10nx.cpp:714-760 loop semantics, exactly),
+//   * gate (FASTQ: trimmed length > KSIZE via stop-start >= KSIZE;
+//     FASTA: sequence length > KSIZE),
+//   * encode the trimmed subsequence to 2-bit codes (4 = invalid) into the
+//     caller's [B, L] plane, left-justified,
+//   * stash the accession and trimmed sequence text (saved-read capture).
+// Reads longer than L report their full length; the caller rebuilds them
+// from the stashed text for the chunked long-read path.
+//
+// Build: g++ -O3 -shared -fPIC fastx_native.cpp -o libfastx.so -lz
+
+#include <zlib.h>
+
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <string>
+#include <vector>
+
+namespace {
+
+constexpr int KSIZE = 30;
+constexpr char CUTOFF = 49;  // '1' = 33 + 16? no: 32 + 17 (newkmer_10nx.cpp:718)
+constexpr int WINDOW = 4;
+constexpr int WINDOW_CUT = 49 * 4;
+
+enum Format : int {
+  FASTQ_GZ = 0,
+  FASTQ_PLAIN = 1,
+  FASTA_GZ = 2,
+  FASTA_PLAIN = 3,
+};
+
+struct LineReader {
+  gzFile gz = nullptr;
+  FILE* fp = nullptr;
+  std::string buf;
+  size_t pos = 0;
+  bool eof_ = false;
+
+  bool open(const char* path, bool gzip) {
+    if (gzip) {
+      gz = gzopen(path, "rb");
+      return gz != nullptr;
+    }
+    fp = fopen(path, "rb");
+    return fp != nullptr;
+  }
+
+  void close() {
+    if (gz) gzclose(gz);
+    if (fp) fclose(fp);
+    gz = nullptr;
+    fp = nullptr;
+  }
+
+  bool fill() {
+    char tmp[1 << 16];
+    int n;
+    if (gz) {
+      n = gzread(gz, tmp, sizeof(tmp));
+    } else {
+      n = (int)fread(tmp, 1, sizeof(tmp), fp);
+    }
+    if (n <= 0) {
+      eof_ = true;
+      return false;
+    }
+    buf.append(tmp, n);
+    return true;
+  }
+
+  // Next line without trailing \n / \r\n; false at EOF.
+  bool next(std::string* line) {
+    for (;;) {
+      size_t nl = buf.find('\n', pos);
+      if (nl != std::string::npos) {
+        line->assign(buf, pos, nl - pos);
+        pos = nl + 1;
+        if (pos > (1 << 20)) {
+          buf.erase(0, pos);
+          pos = 0;
+        }
+        if (!line->empty() && line->back() == '\r') line->pop_back();
+        return true;
+      }
+      if (eof_) {
+        if (pos < buf.size()) {
+          line->assign(buf, pos, buf.size() - pos);
+          pos = buf.size();
+          if (!line->empty() && line->back() == '\r') line->pop_back();
+          return true;
+        }
+        return false;
+      }
+      fill();
+    }
+  }
+};
+
+struct Record {
+  std::string acc;
+  std::string seq;   // trimmed
+  bool ok = false;
+};
+
+uint8_t g_lut[2][256];
+bool g_lut_init = false;
+
+void init_luts() {
+  if (g_lut_init) return;
+  for (int v = 0; v < 2; v++)
+    for (int c = 0; c < 256; c++) g_lut[v][c] = 4;
+  const char* b = "ACGT";
+  for (int i = 0; i < 4; i++) {
+    g_lut[0][(unsigned char)b[i]] = i;
+    g_lut[0][(unsigned char)(b[i] + 32)] = i;
+    g_lut[1][(unsigned char)b[i]] = i;
+    g_lut[1][(unsigned char)(b[i] + 32)] = i;
+  }
+  g_lut[1]['U'] = 3;
+  g_lut[1]['u'] = 3;
+  g_lut_init = true;
+}
+
+// process_qual trim (newkmer_10nx.cpp:714-760); returns keep.
+bool trim(const std::string& seq, const std::string& qual, int* start_out,
+          int* stop_out) {
+  int len = (int)seq.size();
+  if (len == 0) return false;
+  int stop = len - 1;
+  int start = 0;
+  auto q = [&](int i) -> int {
+    return i < (int)qual.size() ? (unsigned char)qual[i] : 0;
+  };
+  while (q(start) < CUTOFF && start < stop) start++;
+  while (q(stop) < CUTOFF && stop > start) stop--;
+  if (start < stop - WINDOW) {
+    int wv = q(start) + q(start + 1) + q(start + 2) + q(start + 3);
+    while (wv < WINDOW_CUT && start < stop - WINDOW) {
+      wv += q(start + 4) - q(start);
+      start++;
+    }
+  }
+  if (start < stop - WINDOW) {
+    int wv = q(stop) + q(stop - 1) + q(stop - 2) + q(stop - 3);
+    while (wv < WINDOW_CUT && start < stop - WINDOW) {
+      wv += q(stop - 4) - q(stop);
+      stop--;
+    }
+  }
+  *start_out = start;
+  *stop_out = stop;
+  return (stop - start) >= KSIZE;
+}
+
+struct Reader {
+  LineReader lr;
+  Format fmt;
+  int mod4 = 0;
+  std::string acc, seq, tok;
+  std::vector<std::string> fa_parts;
+  std::string fa_acc;
+  bool done = false;
+  Record pending;
+  bool has_pending = false;
+
+  static std::string first_token(const std::string& line, std::string* sticky) {
+    size_t i = 0;
+    while (i < line.size() && isspace((unsigned char)line[i])) i++;
+    size_t j = i;
+    while (j < line.size() && !isspace((unsigned char)line[j])) j++;
+    if (j > i) *sticky = line.substr(i, j - i);
+    return *sticky;  // stale-token quirk: reuse previous on failed extraction
+  }
+
+  // Returns false at end of file.  Fills rec (rec->ok false => record
+  // dropped by gates, but still consumed).
+  bool next_record(Record* rec) {
+    rec->ok = false;
+    std::string line;
+    switch (fmt) {
+      case FASTQ_GZ:
+      case FASTQ_PLAIN: {
+        const bool tokenized = (fmt == FASTQ_PLAIN);
+        while (lr.next(&line)) {
+          std::string field;
+          if (tokenized) {
+            field = first_token(line, &tok);
+          } else {
+            field = line;
+          }
+          if (field.empty()) continue;  // phase does not advance
+          if (mod4 == 0) acc = field;
+          else if (mod4 == 1) seq = field;
+          else if (mod4 == 3) {
+            mod4 = 0;
+            int start, stop;
+            if (trim(seq, field, &start, &stop)) {
+              rec->ok = true;
+              rec->acc = acc;
+              rec->seq = seq.substr(start, stop - start + 1);
+            }
+            return true;
+          }
+          if (mod4 != 0) mod4 = (mod4 + 1) % 4;
+          else mod4 = 1;
+        }
+        return false;
+      }
+      case FASTA_GZ:
+      case FASTA_PLAIN: {
+        const bool tokenized = (fmt == FASTA_PLAIN);
+        while (lr.next(&line)) {
+          std::string field;
+          if (tokenized) {
+            field = first_token(line, &tok);
+            if (field.empty()) continue;
+          } else {
+            field = line;
+            if (field.empty()) continue;
+          }
+          if (field[0] == '>') {
+            std::string prev_acc = fa_acc;
+            std::string s;
+            for (auto& p : fa_parts) s += p;
+            fa_parts.clear();
+            fa_acc = field.substr(1);
+            if ((int)s.size() > KSIZE) {
+              rec->ok = true;
+              rec->acc = prev_acc;
+              rec->seq = s;
+              return true;
+            }
+            // dropped record: keep scanning
+          } else {
+            fa_parts.push_back(field);
+          }
+        }
+        if (!done) {
+          done = true;
+          std::string s;
+          for (auto& p : fa_parts) s += p;
+          fa_parts.clear();
+          if ((int)s.size() > KSIZE) {
+            rec->ok = true;
+            rec->acc = fa_acc;
+            rec->seq = s;
+            return true;
+          }
+        }
+        return false;
+      }
+    }
+    return false;
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+void* fx_open(const char* path, int format, int u_is_t) {
+  init_luts();
+  Reader* r = new Reader();
+  r->fmt = (Format)format;
+  bool gz = (format == FASTQ_GZ || format == FASTA_GZ);
+  if (!r->lr.open(path, gz)) {
+    delete r;
+    return nullptr;
+  }
+  (void)u_is_t;  // encoding variant chosen per batch call
+  return r;
+}
+
+void fx_close(void* h) {
+  if (!h) return;
+  Reader* r = (Reader*)h;
+  r->lr.close();
+  delete r;
+}
+
+// Fill rows [row0, B) of a [B, L] code plane.
+// Returns number of rows filled this call; *eof set when the file is done.
+// Text blobs: acc/seq bytes appended with (B+1)-length offset arrays
+// (caller guarantees capacity; on overflow returns -1).
+int fx_next_batch(void* h, int row0, int batch, int max_len, int u_is_t,
+                  uint8_t* codes, int32_t* lengths, char* acc_buf,
+                  int64_t acc_cap, int64_t* acc_off, char* seq_buf,
+                  int64_t seq_cap, int64_t* seq_off, int32_t* eof) {
+  Reader* r = (Reader*)h;
+  const uint8_t* lut = g_lut[u_is_t ? 1 : 0];
+  *eof = 0;
+  int row = row0;
+  if (row == 0) {
+    acc_off[0] = 0;
+    seq_off[0] = 0;
+  }
+  Record rec;
+  while (row < batch) {
+    if (r->has_pending) {
+      rec = r->pending;
+      r->has_pending = false;
+    } else if (!r->next_record(&rec)) {
+      *eof = 1;
+      break;
+    }
+    if (!rec.ok) continue;
+    int64_t apos = acc_off[row];
+    int64_t spos = seq_off[row];
+    if (apos + (int64_t)rec.acc.size() > acc_cap ||
+        spos + (int64_t)rec.seq.size() > seq_cap) {
+      // blob full: stash the record and let the caller flush/grow
+      r->pending = rec;
+      r->has_pending = true;
+      break;
+    }
+    memcpy(acc_buf + apos, rec.acc.data(), rec.acc.size());
+    memcpy(seq_buf + spos, rec.seq.data(), rec.seq.size());
+    acc_off[row + 1] = apos + rec.acc.size();
+    seq_off[row + 1] = spos + rec.seq.size();
+    int n = (int)rec.seq.size();
+    lengths[row] = n;
+    uint8_t* out = codes + (int64_t)row * max_len;
+    int ncopy = n < max_len ? n : max_len;
+    for (int i = 0; i < ncopy; i++) out[i] = lut[(unsigned char)rec.seq[i]];
+    for (int i = ncopy; i < max_len; i++) out[i] = 4;
+    row++;
+  }
+  return row - row0;
+}
+
+}  // extern "C"

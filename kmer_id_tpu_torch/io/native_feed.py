@@ -1,0 +1,140 @@
+"""Batch feeder over the native decoder: C++ fills [B, L] planes directly.
+
+Produces the same Batch/LongRead stream as io/batch.py's Python path (tests
+assert equality), but decode/trim/encode run in native code and accession/
+trimmed-sequence text stays in bulk blobs, materialized as Python strings
+only for the rare rows the saved-read capture actually touches.
+
+Rows whose trimmed read exceeds max_len are *placeholders*: their in-plane
+codes are truncated, so the feeder zeroes them out of the device batch and
+reports them in ``long_rows`` — the engine classifies them via the chunked
+long-read path at exactly their position in read order (order matters for
+the first-SAVENUM capture semantics, newkmer_10nx.cpp:608-613).
+
+Copy of ``kmer_id_tpu/io/native_feed.py``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Iterator, Optional
+
+import numpy as np
+
+from kmer_id_tpu_torch.io.batch import Batch, RowMeta, pack_codes
+from kmer_id_tpu_torch.io.native import NativeFileReader, detect_format, get_lib
+from kmer_id_tpu_torch.core.codec import CODE_LUT, CODE_LUT_U, INVALID
+
+
+def native_available() -> bool:
+    return get_lib() is not None
+
+
+class BlobMetas:
+    """Lazy per-row RowMeta views over the copied text blobs."""
+
+    def __init__(self, acc_bytes, acc_off, seq_bytes, seq_off, n_rows):
+        self.acc_bytes = acc_bytes
+        self.acc_off = acc_off
+        self.seq_bytes = seq_bytes
+        self.seq_off = seq_off
+        self.n_rows = n_rows
+
+    def __getitem__(self, i: int) -> Optional[RowMeta]:
+        if i >= self.n_rows:
+            return None
+        acc = bytes(self.acc_bytes[self.acc_off[i] : self.acc_off[i + 1]]).decode(
+            "latin-1"
+        )
+        seq = bytes(self.seq_bytes[self.seq_off[i] : self.seq_off[i + 1]]).decode(
+            "latin-1"
+        )
+        return RowMeta(acc=acc, trimmed_seq=seq)
+
+    def seq_codes(self, i: int, u_is_t: bool) -> np.ndarray:
+        lut = CODE_LUT_U if u_is_t else CODE_LUT
+        raw = self.seq_bytes[self.seq_off[i] : self.seq_off[i + 1]]
+        return lut[raw]
+
+
+@dataclass
+class NativeBatch:
+    batch: Batch
+    long_rows: list[int]  # row indices whose true read exceeds max_len
+
+
+class NativePlaneFeeder:
+    """Feeds read files through the native decoder into full planes."""
+
+    def __init__(self, batch_size: int, max_len: int, u_is_t: bool,
+                 acc_cap_per_row: int = 256, seq_cap_per_row: int = 1024):
+        self.b = batch_size
+        self.l = max_len
+        self.u_is_t = u_is_t
+        self._new_plane()
+        self.acc_cap = self.b * acc_cap_per_row
+        self.seq_cap = self.b * seq_cap_per_row
+        self.acc_buf = np.zeros(self.acc_cap, dtype=np.uint8)
+        self.seq_buf = np.zeros(self.seq_cap, dtype=np.uint8)
+        self.acc_off = np.zeros(self.b + 1, dtype=np.int64)
+        self.seq_off = np.zeros(self.b + 1, dtype=np.int64)
+
+    def _new_plane(self):
+        self.codes = np.full((self.b, self.l), INVALID, dtype=np.uint8)
+        self.lengths = np.zeros(self.b, dtype=np.int32)
+        self.row = 0
+
+    def _emit(self) -> NativeBatch:
+        n = self.row
+        metas = BlobMetas(
+            self.acc_buf[: self.acc_off[n]].copy(),
+            self.acc_off[: n + 1].copy(),
+            self.seq_buf[: self.seq_off[n]].copy(),
+            self.seq_off[: n + 1].copy(),
+            n,
+        )
+        long_rows = np.nonzero(self.lengths[:n] > self.l)[0].tolist()
+        # long placeholder rows are zeroed out of the device batch before
+        # packing (their in-plane codes are truncated junk)
+        lens_dev = self.lengths.copy()
+        if long_rows:
+            lens_dev[long_rows] = 0
+        packed, exc = pack_codes(self.codes, np.minimum(lens_dev, self.l))
+        batch = Batch(codes=self.codes, lengths=lens_dev, metas=metas, n_rows=n,
+                      packed=packed, exc=exc)
+        self._new_plane()
+        self.acc_off[0] = 0
+        self.seq_off[0] = 0
+        return NativeBatch(batch=batch, long_rows=long_rows)
+
+    def feed_path(self, path: str, fmt: str | None = None) -> Iterator[NativeBatch]:
+        fmt = fmt or detect_format(path)
+        if fmt is None:
+            return
+        reader = NativeFileReader(path, fmt, self.u_is_t)
+        try:
+            while True:
+                filled, eof = reader.fill(
+                    self.row, self.codes, self.lengths,
+                    self.acc_buf, self.acc_off, self.seq_buf, self.seq_off,
+                )
+                self.row += filled
+                if self.row >= self.b:
+                    yield self._emit()
+                elif eof:
+                    break
+                elif filled == 0 and self.row > 0:
+                    # text blobs full before the plane: flush early
+                    yield self._emit()
+                elif filled == 0:
+                    # one record larger than the blobs: grow and retry
+                    self.seq_cap *= 2
+                    self.acc_cap *= 2
+                    self.seq_buf = np.zeros(self.seq_cap, dtype=np.uint8)
+                    self.acc_buf = np.zeros(self.acc_cap, dtype=np.uint8)
+        finally:
+            reader.close()
+
+    def flush(self) -> Iterator[NativeBatch]:
+        if self.row > 0:
+            yield self._emit()

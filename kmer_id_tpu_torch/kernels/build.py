@@ -40,38 +40,52 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build(name: str) -> tuple[str, dict]:
-    """Compile ``csrc/<name>.cu`` if its keyed library is missing.
-
-    Returns (library path, info) where info holds the build seconds (0 when
-    the library was already built) and the compiler's ``-Xptxas -v`` report.
-    """
+def _paths(name: str) -> tuple[str, str]:
+    """(source, keyed library path) of ``csrc/<name>.cu``."""
     src = os.path.join(_SRC_DIR, f"{name}.cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    so = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
-    log_path = so + ".log"
-    if os.path.exists(so):
-        report = ""
-        if os.path.exists(log_path):
-            with open(log_path) as f:
-                report = f.read()
-        return so, {"seconds": 0.0, "ptxas": report}
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.tmp{os.getpid()}"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+    return src, os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+
+
+def build_many(names) -> dict:
+    """Compile every ``csrc/<name>.cu`` whose keyed library is missing, one
+    nvcc process per source, all started together.
+
+    Returns {name: (library path, info)} where info holds the build seconds
+    (0 when the library was already built) and the compiler's
+    ``-Xptxas -v`` report.
+    """
+    out, running = {}, {}
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if r.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed on {src} (exit {r.returncode}):\n{r.stdout}\n{r.stderr}"
-        )
-    report = r.stdout + r.stderr
-    with open(log_path, "w") as f:
-        f.write(report)
-    os.replace(tmp, so)
-    return so, {"seconds": seconds, "ptxas": report}
+    for name in names:
+        src, so = _paths(name)
+        if os.path.exists(so):
+            report = ""
+            if os.path.exists(so + ".log"):
+                with open(so + ".log") as f:
+                    report = f.read()
+            out[name] = (so, {"seconds": 0.0, "ptxas": report})
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.tmp{os.getpid()}"
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+        running[name] = (src, so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for name, (src, so, tmp, proc) in running.items():
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n{report}")
+        with open(so + ".log", "w") as f:
+            f.write(report)
+        os.replace(tmp, so)
+        out[name] = (so, {"seconds": time.perf_counter() - t0, "ptxas": report})
+    return out
+
+
+def build(name: str) -> tuple[str, dict]:
+    """:func:`build_many` of one source."""
+    return build_many([name])[name]
 
 
 @functools.cache
@@ -83,4 +97,19 @@ def load_compact():
     i = ctypes.c_int
     lib.kmer_compact_ranks.argtypes = [p, p, p, p, p, i, p, p, p, p, p, i, i, i, p]
     lib.kmer_compact_ranks.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def load_gate():
+    """The window-gate library (``csrc/gate.cu``), built on first use."""
+    so, _ = build("gate")
+    lib = ctypes.CDLL(so)
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    u = ctypes.c_uint32
+    lib.kmer_window_gate.argtypes = [p, i, p, i, p, p, i, i, p, u, u, u, i, p, p, p, p, p]
+    lib.kmer_window_gate.restype = ctypes.c_int
+    lib.kmer_window_extract.argtypes = [p, i, p, i, p, p, i, i, p, p, p, p]
+    lib.kmer_window_extract.restype = ctypes.c_int
     return lib

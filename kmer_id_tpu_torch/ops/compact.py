@@ -62,18 +62,22 @@ def compact_ranks_plain(cand, valid, pos, max_hits: int, extras=()):
     )
 
 
-def _check(name, t, dtype, shape, device):
+def check_tensor(fn: str, name, t, dtype, shape, device):
+    """Raises unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` (the kernel wrappers' argument check; ``fn`` names the
+    wrapper in the message)."""
     if t.device != device:
-        raise ValueError(f"compact_ranks_cuda: {name} on {t.device}, expected {device}")
+        raise ValueError(f"{fn}: {name} on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise TypeError(f"compact_ranks_cuda: {name} is {t.dtype}, expected {dtype}")
+        raise TypeError(f"{fn}: {name} is {t.dtype}, expected {dtype}")
     if tuple(t.shape) != shape:
-        raise ValueError(f"compact_ranks_cuda: {name} shape {tuple(t.shape)}, expected {shape}")
+        raise ValueError(f"{fn}: {name} shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
-        raise ValueError(f"compact_ranks_cuda: {name} is not contiguous")
+        raise ValueError(f"{fn}: {name} is not contiguous")
 
 
-def _ptr(t):
+def ptr(t):
+    """A tensor's data pointer as a ctypes argument."""
     return ctypes.c_void_p(t.data_ptr())
 
 
@@ -98,25 +102,25 @@ def compact_ranks_cuda(cand, valid, pos, max_hits: int, extras=()):
     b, c = cand.shape
     pos = pos.expand(b, c).contiguous()
     extras = [e.expand(b, c).contiguous() for e in extras]
-    _check("cand", cand, torch.int32, (b, c), device)
-    _check("valid", valid, torch.bool, (b, c), device)
-    _check("pos", pos, torch.int32, (b, c), device)
+    check_tensor("compact_ranks_cuda", "cand", cand, torch.int32, (b, c), device)
+    check_tensor("compact_ranks_cuda", "valid", valid, torch.bool, (b, c), device)
+    check_tensor("compact_ranks_cuda", "pos", pos, torch.int32, (b, c), device)
     for i, e in enumerate(extras):
-        _check(f"extras[{i}]", e, torch.int32, (b, c), device)
+        check_tensor("compact_ranks_cuda", f"extras[{i}]", e, torch.int32, (b, c), device)
 
     pos_out = torch.empty((b, max_hits), dtype=torch.int32, device=device)
     cand_out = torch.empty((b, max_hits), dtype=torch.int32, device=device)
     n_out = torch.empty((b,), dtype=torch.int32, device=device)
     extra_outs = [torch.empty((b, max_hits), dtype=torch.int32, device=device)
                   for _ in extras]
-    e_in = [_ptr(e) for e in extras] + [None] * (MAX_EXTRAS - len(extras))
-    e_out = [_ptr(e) for e in extra_outs] + [None] * (MAX_EXTRAS - len(extras))
+    e_in = [ptr(e) for e in extras] + [None] * (MAX_EXTRAS - len(extras))
+    e_out = [ptr(e) for e in extra_outs] + [None] * (MAX_EXTRAS - len(extras))
     lib = load_compact()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.kmer_compact_ranks(
-            _ptr(cand), _ptr(valid), _ptr(pos), e_in[0], e_in[1], len(extras),
-            _ptr(pos_out), _ptr(cand_out), _ptr(n_out), e_out[0], e_out[1],
+            ptr(cand), ptr(valid), ptr(pos), e_in[0], e_in[1], len(extras),
+            ptr(pos_out), ptr(cand_out), ptr(n_out), e_out[0], e_out[1],
             b, c, max_hits, ctypes.c_void_p(stream),
         )
     if err != 0:

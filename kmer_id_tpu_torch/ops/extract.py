@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from kmer_id_tpu.core.codec import KSIZE
+from kmer_id_tpu_torch.core.codec import KSIZE
 from kmer_id_tpu_torch.ops.words import narrow, widen
 
 # Forward key: base j of the window contributes code << 2*(KSIZE-1-j);

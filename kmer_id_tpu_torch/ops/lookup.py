@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from kmer_id_tpu.db.fpdb import BLOOM_BITS
+from kmer_id_tpu_torch.db.fpdb import BLOOM_BITS
 from kmer_id_tpu_torch.ops.words import mul32, widen
 
 

@@ -1,0 +1,208 @@
+"""Report rollups with bit-identical CSV formatting.
+
+Reimplements the reference report scripts' arithmetic and string formatting
+exactly (same float operations in the same order, same ``str()`` rendering),
+so outputs diff clean against the originals:
+
+* :func:`m3_report`     ⇔ the report half of ``kmer_read_m3.py`` (Galaxy
+  mitokmer single-sample CSV)
+* :func:`readc_report`  ⇔ the report half of ``kmer_readc.py`` (job rollup)
+
+Parity quirks preserved (SURVEY.md §2.2): ``kmer_read_m3.py``'s count filter
+compares a *string* to a float — inert under Python 2 ordering — so no count
+filter is applied here either; the shipped CRLF ``mitochondria_refkey.txt``
+makes ``nstrains`` parse as ``"0\\r"`` and the reference divides by zero —
+faithful by default, with ``strip_cr=True`` as the usable escape hatch.
+
+Copy of ``kmer_id_tpu/report/rollup.py``: the two rollups the port's
+``mitokmer`` and ``readc`` write (the directory rollups ``readbatch_10`` and
+``readbatch_c3`` are the JAX CLI's ``report-*`` commands, not ported).
+"""
+
+from __future__ import annotations
+
+import os
+
+
+def _read_lines(path: str, keep_cr: bool = False) -> list[str]:
+    """Read and split on '\\n' like the reference scripts.
+
+    ``keep_cr=True`` mirrors the Python-2 scripts (kmer_read_m3.py,
+    kmer_readc.py), whose text mode does not translate CRLF, so a '\\r'
+    survives at line ends; the Python-3 scripts (readbatch_10/_c3) read with
+    universal newlines and never see it.
+    """
+    with open(path, "r", newline="" if keep_cr else None) as f:
+        data = f.read()
+    return data.split("\n")
+
+
+def _parse_7col_refkey(lines, mincount_filter: bool, min_ranks: int, exclude_b):
+    """Shared 7-col refkey scan (readbatch_c3.py:28-47 / kmer_read_m3.py:50-67).
+
+    ``mincount_filter=False`` reproduces kmer_read_m3.py's inert
+    string-vs-float count comparison.
+    """
+    factor_list: list[float] = []
+    name_list: list[str] = []
+    in_use: list[int] = []
+    for line in lines:
+        if len(line) > 1:
+            target, name, count, hit, tested, gsize, nstrains = line.split("\t")
+            row = name.split("_")
+            target = int(target)
+            hit = float(hit)
+            if nstrains != "0":
+                gensize = float(gsize) / float(nstrains)
+            else:
+                gensize = 1.0
+            tested = float(tested)
+            use = "1"
+            bad_count = mincount_filter and float(count) < 10.0
+            if target in exclude_b or bad_count or hit < 10.0 or len(row) < min_ranks:
+                use = "0"
+            in_use.append(int(use))
+            if use == "1":
+                name_list.append(name)
+                factor_list.append(tested / hit / gensize)
+    return factor_list, name_list, in_use
+
+
+def m3_report(
+    result_path: str,
+    refkey_path: str,
+    out_path: str,
+    strip_cr: bool = False,
+) -> None:
+    """Mitokmer single-sample CSV (report half of ``kmer_read_m3.py``)."""
+    lines = _read_lines(refkey_path, keep_cr=True)
+    if strip_cr:
+        lines = [ln.rstrip("\r") for ln in lines]
+    lines.pop(0)
+    factor_list, name_list, in_use = _parse_7col_refkey(
+        lines, mincount_filter=False, min_ranks=5, exclude_b=set()
+    )
+    num_targs = len(name_list)
+
+    noid_list: list[int] = []
+    m = [0.0 for _ in range(num_targs)]
+    read_ct = 0.0
+    index = 0
+    for line in _read_lines(result_path, keep_cr=True):
+        if len(line) > 1:
+            t_s, count, uniq = line.split(",")
+            target = int(t_s)
+            read_ct += float(count)
+            if target > 0:
+                if in_use[target]:
+                    m[index] = float(count)
+                    index += 1
+            else:
+                noid_list.append(int(count))
+
+    total = 0.0
+    b = []
+    for i in range(num_targs):
+        b1 = m[i] * factor_list[i]
+        total += b1
+        b.append(b1)
+    total /= 100.0
+    for i in range(num_targs):
+        b[i] /= total
+    with open(out_path, "w") as out:
+        out.write("taxid,reads,abundance\n")
+        out.write("total," + str(read_ct) + ",," + "\n")
+        out.write("no_id," + str(noid_list[0]) + ",," + "\n")
+        for i in range(num_targs):
+            if m[i] > 0:
+                out.write(
+                    name_list[i] + "," + "{0:.0f}".format(m[i]) + ","
+                    + "{0:.3f}".format(b[i]) + "\n"
+                )
+
+
+def readc_report(
+    jobs_dir: str,
+    jobs_name: str,
+    key_path: str,
+    count_path: str,
+    out_path: str,
+) -> None:
+    """Chloroplast job rollup (report half of ``kmer_readc.py``)."""
+    import numpy as np
+
+    name_dict: dict[str, str] = {}
+    for line in _read_lines(key_path, keep_cr=True):
+        if len(line) > 1:
+            target, name = line.split("\t")
+            name_dict[target] = name
+
+    job_list: list[str] = []
+    skip = 0
+    for line in _read_lines(os.path.join(jobs_dir, jobs_name + ".txt"), keep_cr=True):
+        if len(line) > 1:
+            if skip == 0:
+                jname, skip_s = line.split()
+                job_list.append(jname)
+                skip = int(skip_s)
+            else:
+                skip -= 1
+
+    count_list: list[float] = []
+    name_list: list[str] = []
+    in_use: list[bool] = []
+    for line in _read_lines(count_path, keep_cr=True):
+        if len(line) > 1:
+            target, count = line.split(",")
+            use = int(count) > 35  # kmer_readc.py:58
+            in_use.append(use)
+            if use:
+                name_list.append(name_dict[target])
+                count_list.append(float(count) + 10.0)
+    count_arr = np.array(count_list)
+    num_targs = len(name_list)
+
+    num_cols = len(job_list)
+    read_ct: list[float] = []
+    noid_list: list[int] = []
+    m = np.zeros((num_targs, num_cols))
+    u = [0 for _ in range(num_targs)]
+    col = 0
+    for f in job_list:
+        fname = os.path.join(jobs_dir, f + "_result.txt")
+        read_ct.append(0.0)
+        index = 0
+        for line in _read_lines(fname, keep_cr=True):
+            if len(line) > 1:
+                t_s, count, uniq = line.split(",")
+                target = int(t_s)
+                read_ct[col] += float(count)
+                if target > 0:
+                    if in_use[target]:
+                        m[index, col] = float(count)
+                        u[index] = uniq
+                        index += 1
+                else:
+                    noid_list.append(int(count))
+        col += 1
+
+    b = m / count_arr[:, None]
+    sums = np.sum(b, axis=0)
+    for i in range(len(sums)):
+        if sums[i] < 0.000001:
+            sums[i] = 0.000001
+    b = b / sums[None, :]
+    b = b * 100.0
+    order_col = sorted(range(num_cols), key=lambda k: job_list[k])
+    rowmax = b.max(axis=1) if num_cols else np.zeros(num_targs)
+    with open(out_path, "w") as out:
+        out.write("name," + "".join(job_list[order_col[i]] + ",,," for i in range(num_cols)) + "\n")
+        out.write("total," + "".join(str(read_ct[order_col[i]]) + ",,," for i in range(num_cols)) + "\n")
+        out.write("no_id," + "".join(str(noid_list[order_col[i]]) + ",,," for i in range(num_cols)) + "\n")
+        for i in range(num_targs):
+            if rowmax[i] > 0.000:
+                output = name_list[i]
+                for j in range(num_cols):
+                    k = order_col[j]
+                    output += "," + str(m[i, k]) + "," + str(u[i]) + "," + str(b[i, k])
+                out.write(output + "\n")

@@ -17,10 +17,11 @@ import shutil
 import numpy as np
 import pytest
 
-from kmer_id_tpu.config import ClassifyConfig
 from kmer_id_tpu.core import codec
 from kmer_id_tpu.db.probes import ProbeRecords, write_probes_text
 from kmer_id_tpu.io.fastx import iter_fasta_plain, iter_fastq_gz, iter_fastq_plain
+from kmer_id_tpu.config import ClassifyConfig as JaxClassifyConfig
+from kmer_id_tpu_torch.config import ClassifyConfig
 from tests.refsim import RefSim
 
 NUM_TARG = 12
@@ -247,21 +248,23 @@ def test_run_vf6_and_run_m3_match_jax(world, tmp_path):
 
     db_files = [str(world["root"] / "db" / f"db_{n}") for n in
                 ("data.txt", "tree.txt", "probes.txt.gz")]
-    cfg = ClassifyConfig.preset("vf6", save_target=TARGET, batch_size=32, max_len=128)
+    kw = dict(save_target=TARGET, batch_size=32, max_len=128)
+    cfg, jcfg = ClassifyConfig.preset("vf6", **kw), JaxClassifyConfig.preset("vf6", **kw)
     dj, dt = _jobs(world, "fj"), _jobs(world, "ft")
-    assert JP.run_vf6("db", "fj", JP.load_db(*db_files), cfg, root=str(world["root"])) == [
+    assert JP.run_vf6("db", "fj", JP.load_db(*db_files), jcfg, root=str(world["root"])) == [
         "a", "z"]
     assert TP.run_vf6("db", "ft", TP.load_db(*db_files), cfg, root=str(world["root"]),
                       device="cpu") == ["a", "z"]
     got, want = _files(dt), _files(dj)
     got.pop("ft.txt"), want.pop("fj.txt")
     assert got == want and len(got) == 6
-    cfg = ClassifyConfig.preset("m3", batch_size=32, max_len=128)
     rd = world["reads"]
     res = {}
     for name, mod in (("jax", JP), ("torch", TP)):
         w = tmp_path / name
         shutil.copytree(world["root"] / "mito", w)
+        conf = JaxClassifyConfig if name == "jax" else ClassifyConfig
+        cfg = conf.preset("m3", batch_size=32, max_len=128)
         kw = {"device": "cpu"} if name == "torch" else {}
         r = mod.run_m3(str(w), str(rd / "contigs.fasta"), str(rd / "short.fastq.gz"),
                        cfg=cfg, **kw)

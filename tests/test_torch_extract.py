@@ -10,8 +10,8 @@ import torch
 
 from kmer_id_tpu.core.codec import INVALID
 from kmer_id_tpu.engine.fpclassify import unpack_codes as jax_unpack
-from kmer_id_tpu.io.batch import pack_codes
 from kmer_id_tpu.ops.extract import extract_kmers as jax_extract
+from kmer_id_tpu_torch.io.batch import pack_codes
 from kmer_id_tpu_torch.ops.extract import extract_kmers, unpack_codes
 
 

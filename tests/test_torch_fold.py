@@ -8,10 +8,11 @@ import pytest
 import jax.numpy as jnp
 import torch
 
-from kmer_id_tpu.core.taxonomy import Taxonomy
+from kmer_id_tpu.core.taxonomy import Taxonomy as JaxTaxonomy
 from kmer_id_tpu.engine.classify import fold_host as jax_fold_host
 from kmer_id_tpu.engine.classify import fold_host_many as jax_fold_host_many
 from kmer_id_tpu.ops.fold import fold_targets_chain as jax_fold
+from kmer_id_tpu_torch.core.taxonomy import Taxonomy
 from kmer_id_tpu_torch.engine.host import fold_host, fold_host_many
 from kmer_id_tpu_torch.ops.fold import fold_targets_chain
 from tests.oracles import fold_ref
@@ -54,7 +55,8 @@ def test_fold_of_empty_plane_is_zero():
 
 
 def test_host_folds_match_jax():
-    _, tax, t = _world(4)
+    parent, tax, t = _world(4)
+    jtax = JaxTaxonomy(parent)
     seqs = [row[row > 0] for row in t]
-    np.testing.assert_array_equal(fold_host_many(tax, seqs), jax_fold_host_many(tax, seqs))
-    assert [fold_host(tax, row) for row in t] == [jax_fold_host(tax, row) for row in t]
+    np.testing.assert_array_equal(fold_host_many(tax, seqs), jax_fold_host_many(jtax, seqs))
+    assert [fold_host(tax, row) for row in t] == [jax_fold_host(jtax, row) for row in t]

@@ -1,0 +1,254 @@
+"""The port's copies of the JAX package's host modules against their
+originals (``kmer_id_tpu_torch/{core,db,io,report}`` vs ``kmer_id_tpu/...``),
+on fixtures made with numpy from a seed.  One parametrised test per area:
+
+* ``build_fpdb``: every table, slot map and salt, the Bloom filter, the
+  ``tinfo`` rows and the taxonomy's chain tables;
+* the packed-DB and ``fpdb`` caches: written by one package, byte-identical
+  to the other's, and read back by the other package field for field;
+* ``pack_codes``: packed words and exception lists, the overflow case;
+* the batches of ``ReadBatcher`` (with the FASTQ/FASTA parsers) and of
+  ``NativePlaneFeeder``, long reads included;
+* the rollup CSV bytes of ``m3_report`` and ``readc_report``.
+"""
+
+import dataclasses
+import gzip
+import os
+
+import numpy as np
+import pytest
+
+from kmer_id_tpu.core.taxonomy import Taxonomy as JTaxonomy
+from kmer_id_tpu.db import fpdb as JFP
+from kmer_id_tpu.db import probes as JPR
+from kmer_id_tpu.io import batch as JB
+from kmer_id_tpu.io import fastx as JFX
+from kmer_id_tpu.io import native_feed as JNF
+from kmer_id_tpu.report import rollup as JRU
+from kmer_id_tpu_torch.core.taxonomy import Taxonomy as TTaxonomy
+from kmer_id_tpu_torch.db import fpdb as TFP
+from kmer_id_tpu_torch.db import probes as TPR
+from kmer_id_tpu_torch.io import batch as TB
+from kmer_id_tpu_torch.io import fastx as TFX
+from kmer_id_tpu_torch.io import native_feed as TNF
+from kmer_id_tpu_torch.report import rollup as TRU
+
+PKG = {"jax": (JTaxonomy, JFP, JPR), "torch": (TTaxonomy, TFP, TPR)}
+
+
+def _equal(a, b, what=""):
+    """Deep equality of dataclass fields, arrays and plain values."""
+    if dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            if not f.name.startswith("_"):
+                _equal(getattr(a, f.name), getattr(b, f.name), f"{what}.{f.name}")
+    elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        assert a is not None and b is not None, what
+        assert np.asarray(a).dtype == np.asarray(b).dtype, what
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=what)
+    else:
+        assert a == b, what
+
+
+def _db(pkg, seed, n_probes, num_targ):
+    """(packed DB, taxonomy, fpdb) of one package from the same seeded
+    records and tree."""
+    tax_cls, fp, pr = PKG[pkg]
+    r = np.random.default_rng(seed)
+    raw = np.unique(r.integers(0, 1 << 60, size=n_probes, dtype=np.uint64))
+    n = len(raw)
+    rec = pr.ProbeRecords(keys=raw, target=r.integers(0, num_targ, size=n).astype(np.int32),
+                          org=r.integers(0, 9, size=n).astype(np.int32),
+                          position=r.integers(0, 10_000, size=n).astype(np.int32),
+                          fstrand=r.random(n) < 0.5, count=np.ones(n, np.int32))
+    parent = np.ones(num_targ, dtype=np.int32)
+    for i in range(3, num_targ):
+        parent[i] = int(r.integers(1, i))
+    packed = pr.pack_probes(rec, num_targ=num_targ)
+    tax = tax_cls(parent)
+    return packed, tax, fp.build_fpdb(packed, tax)
+
+
+@pytest.mark.parametrize("seed,n_probes,num_targ", [(1, 3000, 8), (2, 40_000, 64),
+                                                    (3, 150_000, 300)])
+def test_build_fpdb_matches_jax(seed, n_probes, num_targ):
+    jpk, jtax, jfp = _db("jax", seed, n_probes, num_targ)
+    tpk, ttax, tfp = _db("torch", seed, n_probes, num_targ)
+    _equal(tpk, jpk, "packed")
+    _equal(tfp, jfp, "fpdb")
+    assert tfp.bloom is not None and tfp.nb2 > 0 or n_probes < 10_000
+    np.testing.assert_array_equal(TFP.build_tinfo(ttax), JFP.build_tinfo(jtax))
+    for t, j in zip(ttax.chain_tables(), jtax.chain_tables()):
+        np.testing.assert_array_equal(t, j)
+
+
+def _files(d):
+    return {name: (d / name).read_bytes() for name in sorted(os.listdir(d))}
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+@pytest.mark.parametrize("cache", ["packed", "fpdb"])
+def test_caches_are_shared_both_ways(cache, writer, tmp_path):
+    """Each package writes its own cache; the files are byte-identical, and
+    the other package reads the writer's files into equal objects."""
+    reader = "torch" if writer == "jax" else "jax"
+    built = {pkg: _db(pkg, 5, 20_000, 32) for pkg in PKG}
+    save = {"packed": "save_packed", "fpdb": "save_fpdb"}[cache]
+    load = {"packed": "load_packed", "fpdb": "load_fpdb"}[cache]
+    idx, mod = (0, 2) if cache == "packed" else (2, 1)
+    for pkg, objs in built.items():
+        getattr(PKG[pkg][mod], save)(objs[idx], tmp_path / pkg)
+    assert _files(tmp_path / "torch") == _files(tmp_path / "jax")
+    got = getattr(PKG[reader][mod], load)(tmp_path / writer)
+    _equal(got, built[writer][idx], f"{reader} reading {writer}'s {cache}")
+    if cache == "packed":
+        ck, want = got.cuckoo(), built[writer][0].cuckoo()
+        assert (ck.nb, ck.s1, ck.s2) == (want.nb, want.s1, want.s2)
+        np.testing.assert_array_equal(ck.table, want.table)
+
+
+@pytest.mark.parametrize("case", ["clean", "exceptions", "ragged", "overflow"])
+def test_pack_codes_matches_jax(case):
+    r = np.random.default_rng(11)
+    b, l = (64, 100) if case == "ragged" else (128, 160)
+    codes = r.integers(0, 4, size=(b, l), dtype=np.uint8)
+    lengths = r.integers(0, l + 1, size=b).astype(np.int32)
+    if case != "clean":
+        share = 0.2 if case == "overflow" else 0.01
+        codes[r.random((b, l)) < share] = r.choice(np.array([4, 5, 255], np.uint8))
+    got, want = TB.pack_codes(codes, lengths), JB.pack_codes(codes, lengths)
+    if case == "overflow":
+        assert got == want == (None, None)
+        return
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    assert (got[1] >= 0).any() == (case != "clean")
+
+
+@pytest.fixture(scope="module")
+def read_files(tmp_path_factory):
+    """A FASTQ.gz (Ns, U, low-quality tails, reads longer than the plane)
+    and a plain FASTA (short, long and sub-KSIZE records)."""
+    r = np.random.default_rng(13)
+    d = tmp_path_factory.mktemp("reads")
+
+    def dna(n, alphabet="ACGT"):
+        s = np.frombuffer(alphabet.encode(), np.uint8)[r.integers(0, len(alphabet), size=n)]
+        return s.tobytes().decode()
+
+    lines = []
+    for i in range(300):
+        n = int(r.choice([60, 100, 150, 400]))
+        seq = dna(n, "ACGTN" if i % 7 == 0 else "ACGU" if i % 11 == 0 else "ACGT")
+        qual = "J" * n if i % 5 else "J" * (n - 30) + "#" * 30
+        lines.append(f"@r{i} x\n{seq}\n+\n{qual}\n")
+    fq = d / "reads.fastq.gz"
+    with gzip.open(fq, "wt") as f:
+        f.write("".join(lines))
+    fa = d / "contigs.fasta"
+    fa.write_text("".join(f">c{i} contig\n{dna(n, 'ACGTNU')}\n"
+                          for i, n in enumerate([20, 31, 90, 500, 3000, 128, 129])))
+    return {"fastq": fq, "fasta": fa}
+
+
+def _item_fields(item):
+    if isinstance(item, (JB.Batch, TB.Batch)):
+        metas = [None if m is None else dataclasses.astuple(m) for m in item.metas]
+        return ("batch", item.codes, item.lengths, item.packed, item.exc, item.n_rows, metas)
+    return ("long", dataclasses.astuple(item.meta), item.codes)
+
+
+def _python_feed(fx, bmod, files, u_is_t):
+    rb = bmod.ReadBatcher(32, 128, u_is_t=u_is_t, stage_factor=2)
+    out = []
+    for rec in list(fx.iter_fastq_gz(str(files["fastq"]))) + list(
+            fx.iter_fasta_plain(str(files["fasta"]))):
+        out += [_item_fields(it) for it in rb.add(*rec)]
+    return out + [_item_fields(it) for it in rb.flush()]
+
+
+def _native_feed(nf, files, u_is_t):
+    feeder = nf.NativePlaneFeeder(32, 128, u_is_t)
+    out = []
+    for path in (files["fastq"], files["fasta"]):
+        for nb in list(feeder.feed_path(str(path))) + list(feeder.flush()):
+            b, m = nb.batch, nb.batch.metas
+            out.append((b.codes, b.lengths, b.packed, b.exc, b.n_rows, nb.long_rows,
+                        m.acc_bytes, m.acc_off, m.seq_bytes, m.seq_off, m.n_rows,
+                        [m.seq_codes(i, u_is_t) for i in nb.long_rows]))
+    return out
+
+
+def _deep_equal(a, b):
+    assert type(a) is type(b) or isinstance(a, np.ndarray)
+    if isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _deep_equal(x, y)
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    else:
+        assert a == b
+
+
+@pytest.mark.parametrize("u_is_t", [False, True])
+@pytest.mark.parametrize("feed", ["python", "native"])
+def test_batches_match_jax(read_files, feed, u_is_t):
+    if feed == "python":
+        got = _python_feed(TFX, TB, read_files, u_is_t)
+        want = _python_feed(JFX, JB, read_files, u_is_t)
+        assert {x[0] for x in got} == {"batch", "long"}
+    else:
+        assert TNF.native_available(), "the port's native decoder did not build (g++)"
+        got = _native_feed(TNF, read_files, u_is_t)
+        want = _native_feed(JNF, read_files, u_is_t)
+        assert any(x[5] for x in got)  # long rows
+    assert len(got) == len(want) > 2
+    _deep_equal(got, want)
+
+
+def _m3_fixture(d, r, crlf):
+    n = 40
+    eol = "\r\n" if crlf else "\n"
+    rows = [f"{t}\tk_p_c_o_f_s{t}\t{int(r.integers(1, 90))}\t{int(r.integers(5, 40))}\t"
+            f"{int(r.integers(50, 200))}\t{int(r.integers(1000, 20000))}\t{int(r.integers(0, 3))}"
+            for t in range(n)]
+    (d / "refkey.txt").write_bytes(
+        ("target\tname\tcount\thit\ttested\tgsize\tnstrains" + eol + eol.join(rows) + eol)
+        .encode())
+    (d / "result.txt").write_text("".join(
+        f"{t},{int(r.integers(0, 50)) if t else 7},{int(r.integers(0, 9))}\n"
+        for t in range(n)))
+
+
+def _readc_fixture(d, r):
+    n = 30
+    (d / "key.txt").write_text("".join(f"{t}\tname{t}\n" for t in range(n)))
+    (d / "count.txt").write_text("".join(f"{t},{int(r.integers(10, 90))}\n" for t in range(n)))
+    jobs = ["zeta", "alpha", "mid"]
+    (d / "jobs.txt").write_text("".join(f"{j} 1\nf_{j}.fastq\n" for j in jobs))
+    for j in jobs:
+        (d / f"{j}_result.txt").write_text("".join(
+            f"{t},{int(r.integers(0, 40))},{int(r.integers(0, 5))}\n" for t in range(n)))
+
+
+@pytest.mark.parametrize("report", ["m3", "m3_crlf_stripped", "readc"])
+def test_rollup_csv_bytes_match_jax(report, tmp_path):
+    r = np.random.default_rng(17)
+    out = {}
+    if report == "readc":
+        _readc_fixture(tmp_path, r)
+        for name, mod in (("jax", JRU), ("torch", TRU)):
+            mod.readc_report(str(tmp_path), "jobs", str(tmp_path / "key.txt"),
+                             str(tmp_path / "count.txt"), str(tmp_path / f"{name}.csv"))
+    else:
+        strip = report != "m3"
+        _m3_fixture(tmp_path, r, crlf=strip)
+        for name, mod in (("jax", JRU), ("torch", TRU)):
+            mod.m3_report(str(tmp_path / "result.txt"), str(tmp_path / "refkey.txt"),
+                          str(tmp_path / f"{name}.csv"), strip_cr=strip)
+    got, want = ((tmp_path / f"{n}.csv").read_bytes() for n in ("torch", "jax"))
+    assert got == want and got.count(b"\n") > 4

@@ -6,9 +6,11 @@ finals and unique-k-mer ``seen`` set exactly (all integers), on consistent,
 chimeric, chunk-overflow (genome verbatim: a probe at every window),
 more-than-1,024-N, shorter-than-KSIZE, multi-group and
 more-chunks-than-a-group reads.  The port's SampleProcessor with long reads
-must equal the reference simulator on both feed paths.
+must equal the reference simulator on both feed paths.  Each engine gets its
+own package's host objects (DB, taxonomy, reads), made from the same seed.
 """
 
+import dataclasses
 import io
 
 import jax.numpy as jnp
@@ -17,17 +19,21 @@ import pytest
 import torch
 
 from __graft_entry__ import _toy_world
-from kmer_id_tpu.config import ClassifyConfig
-from kmer_id_tpu.core import codec
-from kmer_id_tpu.core.taxonomy import Taxonomy
-from kmer_id_tpu.db.fpdb import build_fpdb
-from kmer_id_tpu.db.probes import pack_probes
+from chip_smoke import toy_world
+from kmer_id_tpu.core import codec as jax_codec
+from kmer_id_tpu.db.fpdb import build_fpdb as jax_build_fpdb
 from kmer_id_tpu.engine import fpclassify as JF
 from kmer_id_tpu.engine.fpclassify import FpClassifier as JaxFpClassifier
-from kmer_id_tpu.io.batch import LongRead
+from kmer_id_tpu.io.batch import LongRead as JaxLongRead
+from kmer_id_tpu_torch.config import ClassifyConfig
+from kmer_id_tpu_torch.core import codec
+from kmer_id_tpu_torch.core.taxonomy import Taxonomy
+from kmer_id_tpu_torch.db.fpdb import build_fpdb
+from kmer_id_tpu_torch.db.probes import ProbeRecords, pack_probes
 from kmer_id_tpu_torch.engine import fpclassify as F
 from kmer_id_tpu_torch.engine.fpclassify import FpClassifier
-from kmer_id_tpu_torch.ops.extract import extract_kmers
+from kmer_id_tpu_torch.io.batch import LongRead
+from kmer_id_tpu_torch.ops.gate import ReadPlanes
 from tests.refsim import RefSim
 from tests.test_classify_e2e import make_db, rand_dna
 
@@ -37,10 +43,25 @@ L = 96  # max_len: 67 windows per chunk row
 
 @pytest.fixture(scope="module")
 def world():
-    packed, tax, *_ = _toy_world(num_probes=N_PROBES, num_targ=64, batch=8, max_len=L)
+    """(port DB, port taxonomy, port fpdb, genome, (JAX DB, JAX taxonomy,
+    JAX fpdb)): the same toy world from each package."""
+    kw = dict(num_probes=N_PROBES, num_targ=64, batch=8, max_len=L)
+    packed, tax, *_ = toy_world(**kw)
+    jpk, jtax, *_ = _toy_world(**kw)
     src = np.random.default_rng(42).integers(0, 4, size=N_PROBES + codec.KSIZE,
                                              dtype=np.uint8)
-    return packed, tax, build_fpdb(packed, tax), src
+    return packed, tax, build_fpdb(packed, tax), src, (jpk, jtax, jax_build_fpdb(jpk, jtax))
+
+
+def _jax_engine(world, **kw):
+    jpk, jtax, jfpdb = world[4]
+    return JaxFpClassifier(jpk, jtax, max_len=L, fpdb=jfpdb, **kw)
+
+
+def _plane_reads(planes, lens):
+    """Chunk rows as the engine's code-plane batch."""
+    return ReadPlanes(torch.from_numpy(lens), planes.shape[1],
+                      codes=torch.from_numpy(planes))
 
 
 def _reads(src, seed=7):
@@ -71,18 +92,17 @@ def _reads(src, seed=7):
     }
 
 
-def _items(codes_list):
-    return [LongRead(meta=None, codes=c) for c in codes_list]
+def _items(codes_list, cls=LongRead):
+    return [cls(meta=None, codes=c) for c in codes_list]
 
 
 def _run(world, codes_list, batch_size, max_hits=32):
     """(JAX finals, seen, ucount), (port finals, seen, ucount), port engine."""
-    packed, tax, fpdb, _ = world
-    j = JaxFpClassifier(packed, tax, batch_size=batch_size, max_len=L, max_hits=max_hits,
-                        fpdb=fpdb)
+    packed, tax, fpdb, *_ = world
+    j = _jax_engine(world, batch_size=batch_size, max_hits=max_hits)
     t = FpClassifier(packed, tax, batch_size=batch_size, max_len=L, max_hits=max_hits,
                      fpdb=fpdb, device="cpu")
-    jseen, jfin = j.process_long_many(j.new_seen(), _items(codes_list))
+    jseen, jfin = j.process_long_many(j.new_seen(), _items(codes_list, JaxLongRead))
     tseen, tfin = t.process_long_many(t.new_seen(), _items(codes_list))
     n = t.fpdb.n_slots
     return ([int(x) for x in jfin], np.asarray(jseen), j.ucount(jseen),
@@ -117,7 +137,7 @@ def test_process_long_single_read_matches_jax(world, name):
 def test_long_lane_branches_are_exercised(world, monkeypatch):
     """The fixture reads reach the device-flagged, overflow-replay, u8-plane
     and summary-lane branches."""
-    packed, tax, fpdb, src = world
+    packed, tax, fpdb, src, _ = world
     reads = _reads(src)
     t = FpClassifier(packed, tax, batch_size=32, max_len=L, fpdb=fpdb, device="cpu")
     calls = {"replay": 0, "summary": 0, "plane": 0}
@@ -147,8 +167,8 @@ def test_long_lane_branches_are_exercised(world, monkeypatch):
     # the chimeric read is flagged on device (inconsistent), the consistent
     # one is not
     planes, lens, item = t.chunk_rows(_items([reads["chimeric"], reads["consistent"]]))
-    ex = t._extract(t._row_batch(planes, lens))
-    fin, _ = F.fp_long_finals(t._db, ex, torch.from_numpy(item), t.new_seen(), 2,
+    rows = t._reads(t._row_batch(planes, lens))
+    fin, _ = F.fp_long_finals(t._db, rows, torch.from_numpy(item), t.new_seen(), 2,
                               F.LONG_HITS)
     assert int(fin[0]) & (1 << 30) and 1 < int(fin[1]) < (1 << 30)
 
@@ -156,7 +176,7 @@ def test_long_lane_branches_are_exercised(world, monkeypatch):
 def test_chunk_rows_halo(world):
     """Chunk rows step by max_len - KSIZE + 1, so every window of the read
     lies in exactly one row."""
-    packed, tax, fpdb, src = world
+    packed, tax, fpdb, src, _ = world
     t = FpClassifier(packed, tax, batch_size=16, max_len=L, fpdb=fpdb, device="cpu")
     codes = src[:500]
     planes, lens, item = t.chunk_rows(_items([codes, codes[:10]]))
@@ -172,10 +192,10 @@ def test_fp_long_finals_matches_jax(world):
     """fp_long_finals on one extract: rows of reads 0, 1 and 3 (read 2 has no
     rows: an empty segment) plus pad rows of length 0 on the sentinel
     segment 4."""
-    packed, tax, fpdb, src = world
+    packed, tax, fpdb, src, _ = world
     reads = _reads(src)
     t = FpClassifier(packed, tax, batch_size=64, max_len=L, fpdb=fpdb, device="cpu")
-    j = JaxFpClassifier(packed, tax, batch_size=64, max_len=L, fpdb=fpdb)
+    j = _jax_engine(world, batch_size=64)
     planes, lens, item = t.chunk_rows(
         _items([reads["consistent"], reads["chimeric"], reads["plain"]]))
     item = np.where(item == 2, 3, item)
@@ -188,8 +208,7 @@ def test_fp_long_finals_matches_jax(world):
         j._db, jnp.asarray(planes), jnp.asarray(lens), jnp.asarray(seg), j.new_seen(),
         n_segs=n_segs, max_hits=F.LONG_HITS)
     tseen = t.new_seen()
-    ex = extract_kmers(torch.from_numpy(planes), torch.from_numpy(lens))
-    tfin, tsum = F.fp_long_finals(t._db, ex, torch.from_numpy(seg), tseen, n_segs,
+    tfin, tsum = F.fp_long_finals(t._db, _plane_reads(planes, lens), torch.from_numpy(seg), tseen, n_segs,
                                   F.LONG_HITS)
     np.testing.assert_array_equal(tfin.numpy(), np.asarray(jfin))
     np.testing.assert_array_equal(tsum.numpy(), np.asarray(jsum))
@@ -199,27 +218,28 @@ def test_fp_long_finals_matches_jax(world):
 
 
 def test_fp_summary_matches_jax(world):
-    packed, tax, fpdb, src = world
+    packed, tax, fpdb, src, _ = world
     reads = _reads(src)
     t = FpClassifier(packed, tax, batch_size=64, max_len=L, fpdb=fpdb, device="cpu")
-    j = JaxFpClassifier(packed, tax, batch_size=64, max_len=L, fpdb=fpdb)
+    j = _jax_engine(world, batch_size=64)
     planes, lens, _ = t.chunk_rows(_items(reads.values()))
     for mh in (F.LONG_HITS, 32):
         want = JF._fp_kernel_codes(j._db, jnp.asarray(planes), jnp.asarray(lens),
                                    max_hits=mh, mode="summary")
-        ex = extract_kmers(torch.from_numpy(planes), torch.from_numpy(lens))
-        np.testing.assert_array_equal(F.fp_summary(t._db, ex, mh).numpy(), np.asarray(want))
+        rows = _plane_reads(planes, lens)
+        np.testing.assert_array_equal(F.fp_summary(t._db, rows, mh).numpy(), np.asarray(want))
         jsum, jseen = JF._fp_sum_seen_codes(j._db, jnp.asarray(planes), jnp.asarray(lens),
                                             j.new_seen(), max_hits=mh)
         tseen = t.new_seen()
-        np.testing.assert_array_equal(F.fp_summary_seen(t._db, ex, tseen, mh).numpy(),
+        np.testing.assert_array_equal(F.fp_summary_seen(t._db, rows, tseen, mh).numpy(),
                                       np.asarray(jsum))
         np.testing.assert_array_equal(tseen[: t.fpdb.n_slots].numpy(), np.asarray(jseen))
 
 
 @pytest.fixture(scope="module")
 def small_world():
-    rec, kmap = make_db()
+    jrec, kmap = make_db()
+    rec = ProbeRecords(**dataclasses.asdict(jrec))  # the port's own records
     parent = [1, 1, 1, 2, 2, 4, 1, 6]
     tax = Taxonomy(np.array(parent, dtype=np.int32))
     return kmap, parent, tax, pack_probes(rec, num_targ=8)
@@ -232,7 +252,7 @@ def _long_records(kmap, seed):
         parts = []
         for _ in range(8):
             parts.append(rand_dna(int(r.integers(50, 300))))
-            parts.append(codec.key_to_string(list(kmap)[int(r.integers(len(kmap)))]))
+            parts.append(jax_codec.key_to_string(list(kmap)[int(r.integers(len(kmap)))]))
             if r.random() < 0.3:
                 parts.append("N")
         records.append((f"c{i}", "".join(parts), None))

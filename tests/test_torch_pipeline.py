@@ -19,11 +19,11 @@ import pytest
 
 import torch
 
-from kmer_id_tpu.config import ClassifyConfig
 from kmer_id_tpu.core import codec
 from kmer_id_tpu.db.probes import ProbeRecords, write_probes_text
-from kmer_id_tpu.io.batch import RowMeta
 from kmer_id_tpu.io.fastx import iter_fastq_gz
+from kmer_id_tpu_torch.config import ClassifyConfig
+from kmer_id_tpu_torch.io.batch import RowMeta
 from tests.refsim import RefSim
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
