@@ -3,18 +3,21 @@
 
     python3 chip_smoke.py
 
-Builds the two kernels from csrc/ (one nvcc per source, started together)
-and holds each bit for bit against its plain PyTorch version: the window
-gate (gate.cu, both modes, both input forms) at the row shapes of
-classify-nx, of the long-read lane and of m3, and the rank compaction
-(compact.cu) at the shapes of classify-nx and of the long-read lane.  Holds
+Builds the three kernels from csrc/ (one nvcc per source, started
+together) and holds each against its plain PyTorch version: the window gate
+(gate.cu, both modes, both input forms) at the row shapes of classify-nx, of
+the long-read lane and of m3, and the rank compaction (compact.cu) at the
+shapes of classify-nx and of the long-read lane, bit for bit; probe + verify
+(probe.cu) at the window shapes of classify-nx and of the long-read lane
+(and m3), on crafted copies of the nx DB's tables, bit for bit except where
+nothing downstream reads (ops/probe.py).  Holds
 the engine on the card against the engine on the CPU, for short batches and
 for the long-read lane, on a toy world made with the port's own host
 modules; then drives every classify path through the port's CLI:
 
 * ``classify-nx`` against a 33M-probe fingerprint DB: a small sample checked
   against the reference simulator (tests/refsim.py), a 500,000-read sample
-  timed;
+  timed (the probe + verify check runs on this DB's tables, after it);
 * ``classify-jobs`` (vf6) against the same DB: 20,000 FASTQ.gz reads plus
   ~300 FASTA contigs and a 1.2-Mbase record, without and with ``-target``,
   checked against the simulator; then a ~50-Mbase contig job timed through
@@ -55,7 +58,10 @@ BATCH, MAX_LEN = 8192, 160
 P = MAX_LEN - 30 + 1  # windows per row
 JOB_BATCH, JOB_MAX_LEN = 2048, 512  # the vf6/m3 CLI defaults
 LONG_P = JOB_MAX_LEN - 30 + 1  # windows per chunk row of the long-read lane
-# (name, rows, columns, max_hits, position plane broadcast from one row)
+# (name, rows, columns, max_hits, position plane broadcast from one row).
+# The main path launches compact.cu at the dense shapes only: the Bloom-gate
+# call now runs inside gate.cu, the verify tiers inside probe.cu; their
+# shapes stay held here.
 KERNEL_SHAPES = (
     ("bloom_gate", BATCH, P, 12, True),
     ("fast_tier", BATCH, 36, 8, False),
@@ -74,15 +80,17 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-KERNELS = ("window_gate", "window_extract", "compact_ranks")
+KERNELS = ("window_gate", "window_extract", "probe_verify", "compact_ranks")
 
 
 def _wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from kmer_id_tpu_torch.ops.compact import compact_ranks_cuda
     from kmer_id_tpu_torch.ops.gate import extract_cuda, window_gate_cuda
+    from kmer_id_tpu_torch.ops.probe import probe_verify_cuda
 
-    return dict(zip(KERNELS, (window_gate_cuda, extract_cuda, compact_ranks_cuda)))
+    return dict(zip(KERNELS, (window_gate_cuda, extract_cuda, probe_verify_cuda,
+                              compact_ranks_cuda)))
 
 
 def reset_counts() -> None:
@@ -387,6 +395,256 @@ def gate_phase(device="cuda") -> dict:
                     f"npass max {int(npass.max())}, {int((npass > 0).sum())} rows passing); "
                     f"device kernel {k_ms} ms, plain {p_ms} ms, bound {b_ms} ms ({b_by})")
                 report[(mode, name, form)] = (k_ms, p_ms, b_ms, b_by)
+    return {"max_abs_err": max_err, "times": report}
+
+
+# ----------------------------------------------------------- probe phase
+
+# (shape name, rows, max_hits): classify-nx's batches, and the chunk groups
+# of the long-read lane (vf6 and m3 alike) at its per-chunk budget
+PROBE_SHAPES = (("nx", BATCH, 32), ("lane", JOB_BATCH, 8))
+PROBE_WORLDS = ("mixed", "empty", "saturated")
+PROBE_OPS_PER_WINDOW = 120  # three hashes, 24 fingerprint compares, ranks, verify
+PROBE_FIELDS = ("cand", "ver", "tin", "tout", "depth", "t", "nh", "deepest", "dtgt",
+                "consistent", "overflow")
+VER_MASKED = ("tin", "tout", "depth")  # compared where ver only
+
+
+def probe_kinds(rng, b, world):
+    """Row kinds of a probe world: 0 no passing window; 1 typical (1-4
+    windows, about half of them DB keys, some planted in one plane, some
+    with c1 == c2); 2 BLOOM_K DB keys; 3 BLOOM_K random keys (false passes);
+    4 BLOOM_K keys each planted in its L1 bucket and both L2 buckets (36
+    candidates: past 32, the overflow bit).  Worlds: "empty" (all 0),
+    "typical" (0 and 1), "saturated" (2, and 4 in a row of four),
+    "overflow" (all 4), "mixed" (every kind)."""
+    if world == "empty":
+        return np.zeros(b, np.int64)
+    if world == "overflow":
+        return np.full(b, 4)
+    if world == "saturated":
+        return rng.choice([2, 4], size=b, p=[0.75, 0.25])
+    if world == "typical":
+        return rng.choice(2, size=b, p=[0.4, 0.6])
+    return rng.choice(5, size=b, p=[0.3, 0.45, 0.1, 0.1, 0.05])
+
+
+def _key_words(key):
+    return (key >> np.uint64(32)).astype(np.uint32), (key & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+
+
+def probe_windows(rng, fpdb, keys, b, k, p, kinds):
+    """Window-gate outputs for rows of ``kinds`` (:func:`probe_kinds`) against
+    an FpDB and its sorted uint64 ``keys``: (wpos int32, whi, wlo uint32
+    [b, k], numpy; ``SENT`` and 0 past a row's last window, positions
+    ascending below ``p``) and the plants those rows need, for
+    :func:`craft_tables`: {"hi", "lo", "planes" (bitmask: 1 L1, 2 L2 choice
+    1, 4 L2 choice 2), "dup" (a second copy in the L1 bucket), "verify"
+    (plane made to verify, -1 for none)}."""
+    from kmer_id_tpu_torch.db.fpdb import fp_hashes
+    from kmer_id_tpu_torch.ops.compact import SENT
+
+    nb2 = len(fpdb.fptab2)
+
+    def l2(hi, lo):
+        return fp_hashes(hi, lo, nb2, fpdb.s4, fpdb.s5, fpdb.s3)[:2]
+
+    n_win = np.where(kinds == 0, 0, np.where(kinds == 1, rng.integers(1, 5, size=b), k))
+    rows, cols = np.nonzero(np.arange(k)[None, :] < n_win[:, None])
+    kind, n = kinds[rows], len(rows)
+    from_db = (kind == 2) | ((kind == 1) & (rng.random(n) < 0.5))
+    key = np.where(from_db, keys[rng.integers(0, len(keys), size=n)],
+                   rng.integers(0, 1 << 60, size=n, dtype=np.uint64))
+    hi, lo = _key_words(key)
+    while True:  # overflow windows need two distinct L2 buckets
+        c1, c2 = l2(hi, lo)
+        redo = np.nonzero((kind == 4) & (c1 == c2))[0]
+        if not len(redo):
+            break
+        hi[redo], lo[redo] = _key_words(rng.integers(0, 1 << 60, size=len(redo), dtype=np.uint64))
+    # typical random windows: a tenth take keys whose two L2 buckets agree
+    # (the third plane is then never a candidate), planted in that bucket
+    pool_hi, pool_lo = _key_words(rng.integers(0, 1 << 60, size=min(32 * nb2, 1 << 22),
+                                               dtype=np.uint64))
+    same = np.nonzero(np.equal(*l2(pool_hi, pool_lo)))[0]
+    rand1 = np.nonzero((kind == 1) & ~from_db)[0]
+    twin = rand1[rng.random(len(rand1)) < 0.1][: len(same)]
+    hi[twin], lo[twin] = pool_hi[same[: len(twin)]], pool_lo[same[: len(twin)]]
+
+    planes = np.zeros(n, np.int64)
+    verify = np.full(n, -1, np.int64)
+    one = rand1[~np.isin(rand1, twin) & (rng.random(len(rand1)) < 0.5)]
+    planes[one] = 1 << rng.integers(0, 3, size=len(one))
+    verify[one] = np.where(rng.random(len(one)) < 0.5, np.log2(planes[one]).astype(np.int64), -1)
+    planes[twin] = 2
+    verify[twin] = np.where(rng.random(len(twin)) < 0.5, 1, -1)
+    over = np.nonzero(kind == 4)[0]
+    planes[over] = 7
+    verify[over] = np.where(rng.random(len(over)) < 0.7, rng.integers(0, 3, size=len(over)), -1)
+    dup = np.zeros(n, bool)
+    dup[over] = rng.random(len(over)) < 0.3
+
+    pos = np.sort(np.argsort(rng.random((b, p)), axis=1)[:, :k], axis=1).astype(np.int32)
+    wpos = np.full((b, k), SENT, np.int32)
+    whi, wlo = np.zeros((b, k), np.uint32), np.zeros((b, k), np.uint32)
+    wpos[rows, cols] = pos[rows, cols]
+    whi[rows, cols], wlo[rows, cols] = hi, lo
+    sel = planes > 0
+    plants = {"hi": hi[sel], "lo": lo[sel], "planes": planes[sel], "dup": dup[sel],
+              "verify": verify[sel]}
+    return wpos, whi, wlo, plants
+
+
+def craft_tables(rng, fpdb, n_nodes, plants):
+    """Copies of ``fpdb``'s fptab, fptab2 and rec with ``plants`` written in
+    (:func:`probe_windows`): each key's fingerprint in a free half of every
+    bucket its bitmask names (another half of its L1 bucket too for a
+    duplicate; halves taken by an earlier plant are not reused, so every
+    plant holds), then, for a verify plane, the rec row of that bucket's
+    first matching slot set to the key with a random tin below ``n_nodes``
+    and a depth of 0-3 (ties for the deepest hit)."""
+    from kmer_id_tpu_torch.db.fpdb import fp_hashes
+
+    tabs = [fpdb.fptab.copy(), fpdb.fptab2.copy()]
+    rec = fpdb.rec.copy()
+    nb1, nb2 = len(tabs[0]), len(tabs[1])
+    hi, lo = plants["hi"], plants["lo"]
+    b1, _, fp = fp_hashes(hi, lo, nb1, fpdb.s1, fpdb.s2, fpdb.s3)
+    c1, c2, _ = fp_hashes(hi, lo, nb2, fpdb.s4, fpdb.s5, fpdb.s3)
+    where = ((0, b1), (1, c1), (1, c2))  # (table, bucket) of each plane
+    used = set()
+    start = rng.integers(0, 8, size=len(hi)).tolist()
+
+    def put(t, bucket, f, h0):
+        for j in range(8):
+            h = (h0 + j) & 7
+            if (t, bucket, h) not in used:
+                used.add((t, bucket, h))
+                word, sh = h & 3, 16 * (h >> 2)
+                tabs[t][bucket, word] = ((int(tabs[t][bucket, word]) & ~(0xFFFF << sh))
+                                         | (f << sh))
+                return
+
+    bucket_lists = [w[1].tolist() for w in where]
+    for i, (mask, d, f) in enumerate(zip(plants["planes"].tolist(), plants["dup"].tolist(),
+                                         fp.tolist())):
+        for q in range(3):
+            if mask >> q & 1:
+                put(where[q][0], bucket_lists[q][i], f, start[i])
+        if d:
+            put(0, bucket_lists[0][i], f, start[i] + 3)
+    ver = np.nonzero(plants["verify"] >= 0)[0]
+    for i in ver.tolist():
+        t, buckets = where[plants["verify"][i]]
+        row = tabs[t][buckets[i]]
+        h = int(np.argmax(np.concatenate([row & 0xFFFF, row >> 16]) == fp[i]))
+        slot = t * nb1 * 8 + int(buckets[i]) * 8 + h
+        rec[slot] = (hi[i], lo[i], int(rng.integers(0, n_nodes)) | int(rng.integers(0, 4)) << 24)
+    return {"fptab": tabs[0], "fptab2": tabs[1], "rec": rec}
+
+
+def probe_tables(fpdb, crafted, tinfo, device) -> dict:
+    """The engine's probe tables on ``device`` from crafted copies."""
+    import torch
+
+    from kmer_id_tpu_torch.ops.words import u32_tensor
+
+    db = {k: u32_tensor(v, device) for k, v in crafted.items()}
+    db["tinfo"] = torch.from_numpy(tinfo).to(device)
+    for i, s in enumerate((fpdb.s1, fpdb.s2, fpdb.s3, fpdb.s4, fpdb.s5)):
+        db[f"fp_s{i + 1}"] = int(s)
+    return db
+
+
+def probe_mismatch(got: dict, want: dict, n_slots: int, seen=None) -> tuple[list, int]:
+    """(names of the outputs that differ, max abs error) between two probe +
+    verify results: every output bit for bit, tin/tout/depth only where
+    ``ver``, and ``seen`` (a pair of tensors) over the slot ids."""
+    import torch
+
+    ver = want["ver"]
+    bad, err = [], 0
+    pairs = [(k, got[k], want[k]) for k in PROBE_FIELDS]
+    if seen is not None:
+        pairs.append(("seen", seen[0][:n_slots], seen[1][:n_slots]))
+    for k, g, w in pairs:
+        if k in VER_MASKED:
+            g, w = torch.where(ver, g, 0), torch.where(ver, w, 0)
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+        if g.shape != w.shape or not torch.equal(g, w):
+            bad.append(k)
+    return bad, err
+
+
+def probe_phase(db, device="cuda") -> dict:
+    """csrc/probe.cu against probe_verify_plain, on the nx phase's DB
+    (33,000,000 probes built by build_fpdb) with crafted copies of its
+    fingerprint tables and rec: at nx [8192x12] with max_hits 32 and the
+    long-read lane's (and m3's) [2048x12] with max_hits 8, in the worlds
+    mixed, empty and saturated (:func:`probe_kinds`); device times beside
+    the bound.  Returns the
+    numbers for the kernels line (nx, mixed)."""
+    import torch
+
+    from kmer_id_tpu_torch.core.taxonomy import Taxonomy
+    from kmer_id_tpu_torch.db.fpdb import build_tinfo, load_fpdb
+    from kmer_id_tpu_torch.ops.compact import SENT, interleave_planes
+    from kmer_id_tpu_torch.ops.gate import BLOOM_K
+    from kmer_id_tpu_torch.ops.lookup import fp_candidates
+    from kmer_id_tpu_torch.ops.probe import probe_verify_cuda, probe_verify_plain
+
+    keys, _, parent, _, cache, _ = db
+    rng = np.random.default_rng(SEED + 4)
+    fp = load_fpdb(cache)
+    tinfo = build_tinfo(Taxonomy(np.asarray(parent, np.int32)))
+    t0 = time.perf_counter()
+    worlds, plants = {}, []
+    for shape, b, mh in PROBE_SHAPES:
+        for world in PROBE_WORLDS:
+            wpos, whi, wlo, pl = probe_windows(rng, fp, keys, b, BLOOM_K, P,
+                                               probe_kinds(rng, b, world))
+            worlds[(shape, world)] = (mh, wpos, whi, wlo)
+            plants.append(pl)
+    crafted = craft_tables(rng, fp, len(tinfo),
+                           {k: np.concatenate([pl[k] for pl in plants]) for k in plants[0]})
+    tdb = probe_tables(fp, crafted, tinfo, device)
+    say(f"probe: {len(worlds)} window sets and tables crafted in {time.perf_counter() - t0:.1f} s")
+    max_err, report = 0, {}
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    for (shape, world), (mh, wpos, whi, wlo) in worlds.items():
+        wp, wh, wl = t(wpos), t(whi.view(np.int32)), t(wlo.view(np.int32))
+        seen_k, seen_p = (torch.zeros(fp.n_slots + 1, dtype=torch.int8, device=device)
+                          for _ in range(2))
+        got = probe_verify_cuda(tdb, wp, wh, wl, mh, seen_k)
+        want = probe_verify_plain(tdb, wp, wh, wl, mh, seen_p)
+        torch.cuda.synchronize()
+        bad, err = probe_mismatch(got, want, fp.n_slots, (seen_k, seen_p))
+        max_err = max(max_err, err)
+        if bad:
+            raise AssertionError(f"probe.cu != plain at {shape} {world}: {bad} (max err {err})")
+        valid = wp < SENT
+        ncand = interleave_planes(fp_candidates(tdb, wh, wl, valid))[1].sum(dim=1)
+        n_valid, n_ver = int(valid.sum()), int(want["nh"].sum())
+        placed = int(ncand.clamp(max=mh).sum())
+        if world == "saturated" and not (int(ncand.max()) == 3 * BLOOM_K
+                                         and bool(want["overflow"].any()) and n_ver > 0):
+            raise AssertionError(f"probe world {shape} saturated: no row of 36 candidates")
+        if world == "mixed" and not (bool(want["overflow"].any()) and n_ver > 0
+                                     and not bool(want["consistent"].all())):
+            raise AssertionError(f"probe world {shape} mixed: no overflow, hit or inconsistency")
+        b = wp.shape[0]
+        nbytes = (b * BLOOM_K * 12 + 48 * n_valid + 12 * placed + 9 * n_ver
+                  + b * mh * 21 + b * 14)
+        b_ms, b_by = bound(nbytes, PROBE_OPS_PER_WINDOW * n_valid)
+        k_dev = device_ms(lambda: probe_verify_cuda(tdb, wp, wh, wl, mh, seen_k))
+        k_call = call_ms(lambda: probe_verify_cuda(tdb, wp, wh, wl, mh, seen_k))
+        p_call = call_ms(lambda: probe_verify_plain(tdb, wp, wh, wl, mh, seen_p))
+        say(f"probe.cu {shape} {world} [{b}x{BLOOM_K}] mh={mh}: equal ({n_valid} windows, "
+            f"{int(ncand.sum())} candidates, {placed} placed, {n_ver} verified, "
+            f"{int(want['overflow'].sum())} overflow rows); device kernel {k_dev} ms, bound "
+            f"{b_ms} ms ({b_by}); per call kernel {k_call} ms, plain {p_call} ms")
+        report[(shape, world)] = (k_dev, p_call, b_ms, b_by)
     return {"max_abs_err": max_err, "times": report}
 
 
@@ -1115,12 +1373,13 @@ def main() -> int:
     card = card_line()
     say(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    from kmer_id_tpu_torch.kernels.build import build_many, load_compact, load_gate
+    from kmer_id_tpu_torch.kernels.build import build_many, load_compact, load_gate, load_probe
 
     t0 = time.perf_counter()
-    built = build_many(["compact", "gate"])  # one nvcc per source, together
+    built = build_many(["compact", "gate", "probe"])  # one nvcc per source, together
     load_compact()
     load_gate()
+    load_probe()
     for name, (_, info) in built.items():
         say(f"build: {name}.cu built in {info['seconds']:.2f} s")
         for line in info["ptxas"].splitlines():
@@ -1142,6 +1401,9 @@ def main() -> int:
     nx = nx_phase()
     say(f"phase nx: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    pr = probe_phase(nx["db"])
+    say(f"phase probe: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     jobs = jobs_phase("cuda", nx["db"])
     say(f"phase jobs: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -1150,12 +1412,14 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     paths = {"nx": nx["launches"], "jobs": jobs["launches"], "m3": m3["launches"]}
     by_kernel = {k: {path: n[k] for path, n in paths.items()} for k in KERNELS}
-    for k in ("window_gate", "compact_ranks"):
+    for k in ("window_gate", "probe_verify"):
         for path, n in by_kernel[k].items():
             if n <= 0:
                 raise AssertionError(f"the {path} path launched {k} no time")
-    if sum(by_kernel["window_extract"].values()) <= 0:
-        raise AssertionError("no path launched the window gate's extract mode")
+    # the dense path and the overflow replay: jobs' probe-dense contigs
+    for k in ("window_extract", "compact_ranks"):
+        if sum(by_kernel[k].values()) <= 0:
+            raise AssertionError(f"no path launched {k}")
     for name in ("jax", "kmer_id_tpu"):
         if name in sys.modules:
             raise AssertionError(f"{name} was imported")
@@ -1190,8 +1454,12 @@ def main() -> int:
               gr["times"][("extract", "nx", "packed")], gr["max_abs_err"],
               {f"{n} {f}": shape_times(t) for (m, n, f), t in gr["times"].items()
                if m == "extract"}),
+        entry("probe_verify", "kmer_id_tpu_torch/csrc/probe.cu",
+              "kmer_id_tpu/ops/compact.py:101", pr["times"][("nx", "mixed")],
+              pr["max_abs_err"],
+              {f"{s} {w}": shape_times(t) for (s, w), t in pr["times"].items()}),
         entry("compact_ranks", "kmer_id_tpu_torch/csrc/compact.cu",
-              "kmer_id_tpu/ops/compact.py:101", kr["times"]["fast_tier"], kr["max_abs_err"],
+              "kmer_id_tpu/ops/compact.py:101", kr["times"]["long_dense_path"], kr["max_abs_err"],
               {name: shape_times(t) for name, t in kr["times"].items()}),
     ]}))
     print(card)

@@ -5,10 +5,11 @@ long-read lane.  Per batch of short reads:
 
     packed 2-bit bases -> window gate (ops/gate.py: keys, validity,
       block-Bloom test, passing windows rank-compacted to BLOOM_K)
-      -> fingerprint candidates (L1 + two L2 rows) -> candidates
-      rank-compacted in window order (two-tier budget) -> verify against
-      the full key in ``rec`` -> (node, tout) from ``tinfo`` -> final call
-      on device and the ``seen`` marks -> finals int32 [B]
+      -> probe + verify (ops/probe.py: fingerprint candidates from L1 and
+      two L2 rows, ranked in window order to ``max_hits``, verified
+      against the full key in ``rec``, (node, tout) from ``tinfo``, the
+      ``seen`` marks, the deepest hit and the consistency test)
+      -> final call on device -> finals int32 [B]
 
 Finals carry bit 30 for reads with more candidates than ``max_hits``; the
 host replays those exactly (:meth:`FpClassifier._finish_collect`).
@@ -22,19 +23,24 @@ candidate-overflowed) are folded on the host from the per-row summary plane
 
 The JAX engine decides its batch-level branches inside one compiled program
 (``lax.cond``).  Eager PyTorch decides them on the host, one ``.item()``
-each per batch, at most four:
+each per batch:
 
 1. ``max(npass) > BLOOM_K`` — any read passing more Bloom windows than the
    budget sends the batch to the probe-every-window (dense) path;
-2. ``max(ncand) > FAST_HITS`` — the full ``max_hits`` tier (bloom and
-   no-bloom paths, when ``max_hits > FAST_HITS``);
+2. ``max(ncand) > FAST_HITS`` — the full ``max_hits`` verify tier, only on
+   a DB without a Bloom filter (and in the plain probe + verify on the
+   CPU): the probe + verify kernel ranks straight to ``max_hits``, and the
+   dense path always takes the full tier;
 3. ``need_fold`` — any inconsistent read (a read without hits is consistent);
 4. the fold's trip count (ops/fold.py), only when 3 holds.
 
+A card batch on the Bloom path takes 1, 3 and 4.
+
 ``seen`` (the per-sample unique-k-mer set, ``newkmer_10nx.cpp:596-603``) is
 an int8 tensor over slot ids with one extra sink element at index
-``n_slots``: unverified lanes write their 1 there, so every write stores 1
-and duplicate indices cannot race.  It is updated in place.
+``n_slots``: the plain version's unverified lanes write their 1 there, so
+every write stores 1 and duplicate indices cannot race (the kernel writes
+only verified slots).  It is updated in place.
 """
 
 from __future__ import annotations
@@ -48,13 +54,20 @@ from kmer_id_tpu_torch.db.fpdb import FpDB, build_fpdb, build_tinfo
 from kmer_id_tpu_torch.db.probes import PackedDB
 from kmer_id_tpu_torch.io.batch import Batch, LongRead, pack_codes
 from kmer_id_tpu_torch.engine.host import PendingBatch, fold_host, fold_host_many
-from kmer_id_tpu_torch.ops.compact import SENT, compact_ranks, interleave_planes
+from kmer_id_tpu_torch.ops.compact import interleave_planes
 from kmer_id_tpu_torch.ops.fold import fold_targets_chain
 from kmer_id_tpu_torch.ops.gate import BLOOM_K, ReadPlanes, extract, window_gate
 from kmer_id_tpu_torch.ops.lookup import fp_candidates
+from kmer_id_tpu_torch.ops.probe import (
+    N_PLANES,
+    cv_tier,
+    mark_seen,
+    probe_verify,
+    two_tier,
+    verify_summary,
+)
 from kmer_id_tpu_torch.ops.words import u32_tensor
 
-FAST_HITS = 8  # fast verify tier's candidate budget
 LONG_HITS = 8  # long-read lane: per-chunk verified-hit budget
 _INT32_MIN, _INT32_MAX = -(2**31), 2**31 - 1
 _WORD_TABLES = ("fptab", "fptab2", "rec", "bloom")
@@ -79,9 +92,10 @@ def device_tables(fpdb: FpDB, taxonomy: Taxonomy, device) -> dict:
     return db
 
 
-def tables_from_jax(db: dict, device="cpu") -> dict:
+def tables_from_jax(db: dict, device) -> dict:
     """The JAX engine's ``_db`` (every value converted to numpy) as this
-    engine's tables: the weights carried across from the reference."""
+    engine's tables on ``device``: the weights carried across from the
+    reference."""
     out = {}
     for k, v in db.items():
         if k in _SALTS:
@@ -93,90 +107,33 @@ def tables_from_jax(db: dict, device="cpu") -> dict:
     return out
 
 
-def _pad_cols(x, n: int):
-    return torch.cat([x, x.new_zeros((x.shape[0], n))], dim=1) if n else x
-
-
-def _mark_seen(seen, idx):
-    """seen[idx] = 1 for every index (unverified lanes point at the sink)."""
-    seen.index_fill_(0, idx.reshape(-1).long(), 1)
-
-
-def _cv_tier(db, hi_ilv, lo_ilv, cand_ilv, valid_ilv, pos_ilv, mh: int,
-             out_mh: int, seen):
-    """Compact to ``mh`` candidates, verify against ``rec``, resolve (node,
-    tout) from ``tinfo``, mark verified slots in ``seen``.  Returns (cand,
-    ver, tin, tout, depth, t) [B, out_mh] (pads are unverified).  The query
-    key words ride as compaction payloads."""
-    b = cand_ilv.shape[0]
-    mh = min(mh, cand_ilv.shape[1])
-    pos32, cand32, _, (qhi, qlo) = compact_ranks(
-        cand_ilv, valid_ilv, pos_ilv, mh, extras=(hi_ilv, lo_ilv)
-    )
-    has = pos32 < SENT
-    rows = db["rec"].index_select(0, cand32.reshape(-1)).view(b, mh, 3)
-    ver = has & (rows[..., 0] == qhi) & (rows[..., 1] == qlo)
-    tin = rows[..., 2] & 0xFFFFFF
-    depth = (rows[..., 2] >> 24) & 0xFF
-    info = db["tinfo"].index_select(0, tin.reshape(-1)).view(b, mh, 2)
-    t = torch.where(ver, info[..., 0], 0)
-    tout = info[..., 1]
-    if seen is not None:
-        _mark_seen(seen, torch.where(ver, cand32, seen.shape[0] - 1))
-    return tuple(_pad_cols(x, out_mh - mh) for x in (cand32, ver, tin, tout, depth, t))
+def _full_planes(db, ex):
+    """Candidates of every window (the dense and no-Bloom paths): the
+    interleaved candidate plane, its validity and window positions."""
+    ci, vi = interleave_planes(fp_candidates(db, ex["hi"], ex["lo"], ex["valid"]))
+    pos = torch.arange(ci.shape[1], device=ci.device, dtype=torch.int32) // N_PLANES
+    return ci, vi, pos[None]
 
 
 def _compact_verify(db, reads: ReadPlanes, max_hits: int, seen=None):
-    """Window gate + candidate compaction + two-tier verify (see the JAX
-    engine's ``_compact_verify``) of a batch's read rows; returns a dict of
-    per-read tensors."""
-    dev = reads.device
-
-    def tiered(qhi, qlo, cand_ilv, valid_ilv, pos_ilv):
-        k = cand_ilv.shape[1] // qhi.shape[1]
-        args = (db, qhi.repeat_interleave(k, dim=1), qlo.repeat_interleave(k, dim=1),
-                cand_ilv, valid_ilv, pos_ilv)
-        ncand = valid_ilv.sum(dim=1, dtype=torch.int32)
-        # host branch 2: the full tier only when some read needs it
-        if max_hits > FAST_HITS and int(ncand.max()) <= FAST_HITS:
-            return _cv_tier(*args, FAST_HITS, max_hits, seen), ncand
-        return _cv_tier(*args, max_hits, max_hits, seen), ncand
-
-    def full_planes(ex):
-        ci, vi = interleave_planes(fp_candidates(db, ex["hi"], ex["lo"], ex["valid"]))
-        pos_ilv = (torch.arange(ci.shape[1], device=dev, dtype=torch.int32) // 3)[None]
-        return ci, vi, pos_ilv
-
+    """Window gate + probe + verify (see the JAX engine's
+    ``_compact_verify``) of a batch's read rows; returns the per-read dict of
+    ops/probe.py.  A batch with a read past ``BLOOM_K`` passing windows, and
+    a DB without a Bloom filter, probe every window instead."""
     if "bloom" in db:
         wpos, whi, wlo, npass = window_gate(db, reads)
-        if int(npass.max()) > BLOOM_K:  # host branch 1: dense path
-            ex = extract(reads)
-            hi, lo = ex["hi"], ex["lo"]
-            ci, vi, pos_ilv = full_planes(ex)
-            k = ci.shape[1] // hi.shape[1]
-            ncand = vi.sum(dim=1, dtype=torch.int32)
-            res = _cv_tier(db, hi.repeat_interleave(k, dim=1),
-                           lo.repeat_interleave(k, dim=1), ci, vi, pos_ilv,
-                           max_hits, max_hits, seen)
-        else:
-            wvalid = wpos < SENT
-            wp = torch.where(wvalid, wpos, 0)
-            planes = fp_candidates(db, whi, wlo, wvalid)
-            ci, vi = interleave_planes(planes)
-            res, ncand = tiered(whi, wlo, ci, vi, wp.repeat_interleave(len(planes), dim=1))
+        if int(npass.max()) <= BLOOM_K:  # host branch 1
+            return probe_verify(db, wpos, whi, wlo, max_hits, seen)
+        ex = extract(reads)  # the dense path
+        ci, vi, pos = _full_planes(db, ex)
+        res = cv_tier(db, ex["hi"].repeat_interleave(N_PLANES, dim=1),
+                      ex["lo"].repeat_interleave(N_PLANES, dim=1), ci, vi, pos,
+                      max_hits, max_hits, seen)
+        ncand = vi.sum(dim=1, dtype=torch.int32)
     else:
         ex = extract(reads)
-        res, ncand = tiered(ex["hi"], ex["lo"], *full_planes(ex))
-    cand, ver, tin, tout, depth, t = res
-    j = torch.where(ver, depth, -1).argmax(dim=1, keepdim=True)  # deepest hit
-    dtin = tin.gather(1, j)
-    return {
-        "cand": cand, "ver": ver, "nh": ver.sum(dim=1, dtype=torch.int32),
-        "deepest": cand.gather(1, j)[:, 0],
-        "consistent": (~ver | ((tin <= dtin) & (dtin <= tout))).all(dim=1),
-        "overflow": ncand > max_hits, "dtgt": t.gather(1, j)[:, 0],
-        "tin": tin, "tout": tout, "t": t, "depth": depth,
-    }
+        res, ncand = two_tier(db, ex["hi"], ex["lo"], *_full_planes(db, ex), max_hits, seen)
+    return verify_summary(res, ncand, max_hits)
 
 
 def _summary_plane(cv):
@@ -272,7 +229,7 @@ def fp_slots(db, reads: ReadPlanes):
 
 def _scatter_plane_seen(seen, plane):
     """Mark every verified slot of a [R, P] slots plane (-1 = miss)."""
-    _mark_seen(seen, torch.where(plane >= 0, plane, seen.shape[0] - 1))
+    mark_seen(seen, torch.where(plane >= 0, plane, seen.shape[0] - 1))
 
 
 def _slot_nodes(rec, tinfo):

@@ -113,3 +113,17 @@ def load_gate():
     lib.kmer_window_extract.argtypes = [p, i, p, i, p, p, i, i, p, p, p, p]
     lib.kmer_window_extract.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def load_probe():
+    """The probe + verify library (``csrc/probe.cu``), built on first use."""
+    so, _ = build("probe")
+    lib = ctypes.CDLL(so)
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    u = ctypes.c_uint32
+    lib.kmer_probe_verify.argtypes = ([p, p, p, i, i, p, u, p, u, p, p, i] + [u] * 5
+                                      + [p, i] + [p] * 11 + [p])
+    lib.kmer_probe_verify.restype = ctypes.c_int
+    return lib

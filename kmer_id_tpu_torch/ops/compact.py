@@ -81,6 +81,16 @@ def ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
+def launch(fn, name: str, device, *args):
+    """Calls a kernel library's C entry ``fn`` with ``args`` and the current
+    stream of ``device``; raises on the cudaError value it returns."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
 def compact_ranks_cuda(cand, valid, pos, max_hits: int, extras=()):
     """Rank compaction by the CUDA kernel ``csrc/compact.cu``.
 
@@ -115,16 +125,9 @@ def compact_ranks_cuda(cand, valid, pos, max_hits: int, extras=()):
                   for _ in extras]
     e_in = [ptr(e) for e in extras] + [None] * (MAX_EXTRAS - len(extras))
     e_out = [ptr(e) for e in extra_outs] + [None] * (MAX_EXTRAS - len(extras))
-    lib = load_compact()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.kmer_compact_ranks(
-            ptr(cand), ptr(valid), ptr(pos), e_in[0], e_in[1], len(extras),
-            ptr(pos_out), ptr(cand_out), ptr(n_out), e_out[0], e_out[1],
-            b, c, max_hits, ctypes.c_void_p(stream),
-        )
-    if err != 0:
-        raise RuntimeError(f"compact_ranks kernel launch failed: cudaError {err}")
+    launch(load_compact().kmer_compact_ranks, "compact_ranks", device,
+           ptr(cand), ptr(valid), ptr(pos), e_in[0], e_in[1], len(extras),
+           ptr(pos_out), ptr(cand_out), ptr(n_out), e_out[0], e_out[1], b, c, max_hits)
     compact_ranks_cuda.launches += 1
     return pos_out, cand_out, n_out, tuple(extra_outs)
 

@@ -24,13 +24,12 @@ CPU tensor to the plain version, with no fallback between the two.
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 
 import torch
 
 from kmer_id_tpu_torch.core.codec import KSIZE
-from kmer_id_tpu_torch.ops.compact import check_tensor, compact_ranks_plain, ptr
+from kmer_id_tpu_torch.ops.compact import check_tensor, compact_ranks_plain, launch, ptr
 from kmer_id_tpu_torch.ops.extract import extract_kmers, unpack_codes
 from kmer_id_tpu_torch.ops.lookup import bloom_pass
 
@@ -112,14 +111,6 @@ def _kernel_args(reads: ReadPlanes, name: str):
     return lead + (ptr(reads.lengths), b, l)
 
 
-def _launch(fn, name: str, device, *args):
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-
-
 def window_gate_cuda(db, reads: ReadPlanes):
     """Gate mode by the CUDA kernel ``csrc/gate.cu`` (see module doc).
     Raises on a batch or table the kernel does not take, and if the build
@@ -139,7 +130,7 @@ def window_gate_cuda(db, reads: ReadPlanes):
                       for _ in range(3))
     npass = torch.empty((b,), dtype=torch.int32, device=dev)
     lib = load_gate()
-    _launch(lib.kmer_window_gate, "window_gate", dev, *lead, ptr(bloom), nblk,
+    launch(lib.kmer_window_gate, "window_gate", dev, *lead, ptr(bloom), nblk,
             db["fp_s4"] & 0xFFFFFFFF, db["fp_s5"] & 0xFFFFFFFF, BLOOM_K,
             ptr(wpos), ptr(whi), ptr(wlo), ptr(npass))
     window_gate_cuda.launches += 1
@@ -161,7 +152,7 @@ def extract_cuda(reads: ReadPlanes) -> dict:
     hi, lo = (torch.empty(shape, dtype=torch.int32, device=dev) for _ in range(2))
     valid = torch.empty(shape, dtype=torch.bool, device=dev)
     lib = load_gate()
-    _launch(lib.kmer_window_extract, "window_extract", dev, *lead,
+    launch(lib.kmer_window_extract, "window_extract", dev, *lead,
             ptr(hi), ptr(lo), ptr(valid))
     extract_cuda.launches += 1
     return {"hi": hi, "lo": lo, "valid": valid}

@@ -143,7 +143,7 @@ def test_tables_from_jax_equal_device_tables(world):
     pk, tax, *_, fpdb, (jpk, jtax, jfpdb) = world
     jclf = JaxFpClassifier(jpk, jtax, batch_size=B, max_len=L, fpdb=jfpdb)
     jdb = {k: np.asarray(v) for k, v in jax.device_get(jclf._db).items()}
-    got = tables_from_jax(jdb)
+    got = tables_from_jax(jdb, device="cpu")
     want = device_tables(fpdb, tax, "cpu")
     assert sorted(got) == sorted(want)
     for k, v in want.items():
