@@ -7,9 +7,10 @@ Builds the three kernels from csrc/ (one nvcc per source, started
 together) and holds each against its plain PyTorch version: the window gate
 (gate.cu, both modes, both input forms) at the row shapes of classify-nx, of
 the long-read lane and of m3, and the rank compaction (compact.cu) at the
-shapes of classify-nx and of the long-read lane, bit for bit; probe + verify
-(probe.cu) at the window shapes of classify-nx and of the long-read lane
-(and m3), on crafted copies of the nx DB's tables, bit for bit except where
+shapes of classify-nx, of the long-read lane and of m3's and jobs' short
+batches, bit for bit; probe + verify (probe.cu) at the window shapes and
+budgets of classify-nx, of the long-read lane and of m3's and jobs' short
+batches, on crafted copies of the nx DB's tables, bit for bit except where
 nothing downstream reads (ops/probe.py).  Holds
 the engine on the card against the engine on the CPU, for short batches and
 for the long-read lane, on a toy world made with the port's own host
@@ -70,6 +71,7 @@ KERNEL_SHAPES = (
     ("long_bloom_gate", JOB_BATCH, LONG_P, 12, True),
     ("long_verify_tier", JOB_BATCH, 36, 8, False),
     ("long_dense_path", JOB_BATCH, 3 * LONG_P, 8, True),
+    ("job_dense_path", JOB_BATCH, 3 * LONG_P, 32, True),  # m3's and jobs' short batches
 )
 MITO_TARG, MITO_PROBES = 17_226, 2_000_000  # targets of mitochondria_tree.txt
 DENSITIES = (0.0, 0.003, 0.03, 1.0)
@@ -400,9 +402,11 @@ def gate_phase(device="cuda") -> dict:
 
 # ----------------------------------------------------------- probe phase
 
-# (shape name, rows, max_hits): classify-nx's batches, and the chunk groups
-# of the long-read lane (vf6 and m3 alike) at its per-chunk budget
-PROBE_SHAPES = (("nx", BATCH, 32), ("lane", JOB_BATCH, 8))
+# (shape name, rows, max_hits): classify-nx's batches; the chunk groups of
+# the long-read lane (vf6 and m3 alike) at its per-chunk budget LONG_HITS;
+# the short batches of mitokmer and classify-jobs at the classifier's
+# default budget
+PROBE_SHAPES = (("nx", BATCH, 32), ("lane", JOB_BATCH, 8), ("m3", JOB_BATCH, 32))
 PROBE_WORLDS = ("mixed", "empty", "saturated")
 PROBE_OPS_PER_WINDOW = 120  # three hashes, 24 fingerprint compares, ranks, verify
 PROBE_FIELDS = ("cand", "ver", "tin", "tout", "depth", "t", "nh", "deepest", "dtgt",
@@ -577,14 +581,38 @@ def probe_mismatch(got: dict, want: dict, n_slots: int, seen=None) -> tuple[list
     return bad, err
 
 
+def probe_plain_full_tier(db, wpos, whi, wlo, max_hits: int, seen) -> dict:
+    """probe_verify_plain with its fast-tier host branch taken out: the
+    full tier at ``max_hits`` always (the same outputs under the probe
+    comparison's masking), so that a CUDA graph captures it and its time is
+    a device time like the kernel's."""
+    import torch
+
+    from kmer_id_tpu_torch.ops.compact import SENT, compact_ranks_plain, interleave_planes
+    from kmer_id_tpu_torch.ops.lookup import fp_candidates
+    from kmer_id_tpu_torch.ops.probe import N_PLANES, cv_tier, verify_summary
+
+    valid = wpos < SENT
+    ci, vi = interleave_planes(fp_candidates(db, whi, wlo, valid))
+
+    def rep(x):
+        return x.repeat_interleave(N_PLANES, dim=1)
+
+    res = cv_tier(db, rep(whi), rep(wlo), ci, vi, rep(torch.where(valid, wpos, 0)),
+                  max_hits, max_hits, seen, compact_ranks_plain)
+    return verify_summary(res, vi.sum(dim=1, dtype=torch.int32), max_hits)
+
+
 def probe_phase(db, device="cuda") -> dict:
     """csrc/probe.cu against probe_verify_plain, on the nx phase's DB
     (33,000,000 probes built by build_fpdb) with crafted copies of its
-    fingerprint tables and rec: at nx [8192x12] with max_hits 32 and the
-    long-read lane's (and m3's) [2048x12] with max_hits 8, in the worlds
-    mixed, empty and saturated (:func:`probe_kinds`); device times beside
-    the bound.  Returns the
-    numbers for the kernels line (nx, mixed)."""
+    fingerprint tables and rec: at nx [8192x12] with max_hits 32, the
+    long-read lane's [2048x12] with max_hits 8 and the m3 and jobs short
+    batches' [2048x12] with max_hits 32, in the worlds mixed, empty and
+    saturated (:func:`probe_kinds`).  Device times (CUDA graphs) of the
+    kernel and of :func:`probe_plain_full_tier` beside the bound, and per
+    call times (host work included) of the kernel and probe_verify_plain.
+    Returns the numbers for the kernels line."""
     import torch
 
     from kmer_id_tpu_torch.core.taxonomy import Taxonomy
@@ -618,11 +646,15 @@ def probe_phase(db, device="cuda") -> dict:
                           for _ in range(2))
         got = probe_verify_cuda(tdb, wp, wh, wl, mh, seen_k)
         want = probe_verify_plain(tdb, wp, wh, wl, mh, seen_p)
+        full = probe_plain_full_tier(tdb, wp, wh, wl, mh, seen_p)
         torch.cuda.synchronize()
         bad, err = probe_mismatch(got, want, fp.n_slots, (seen_k, seen_p))
         max_err = max(max_err, err)
         if bad:
             raise AssertionError(f"probe.cu != plain at {shape} {world}: {bad} (max err {err})")
+        bad, _ = probe_mismatch(full, want, fp.n_slots)
+        if bad:
+            raise AssertionError(f"plain full tier != plain at {shape} {world}: {bad}")
         valid = wp < SENT
         ncand = interleave_planes(fp_candidates(tdb, wh, wl, valid))[1].sum(dim=1)
         n_valid, n_ver = int(valid.sum()), int(want["nh"].sum())
@@ -638,13 +670,15 @@ def probe_phase(db, device="cuda") -> dict:
                   + b * mh * 21 + b * 14)
         b_ms, b_by = bound(nbytes, PROBE_OPS_PER_WINDOW * n_valid)
         k_dev = device_ms(lambda: probe_verify_cuda(tdb, wp, wh, wl, mh, seen_k))
+        p_dev = device_ms(lambda: probe_plain_full_tier(tdb, wp, wh, wl, mh, seen_p))
         k_call = call_ms(lambda: probe_verify_cuda(tdb, wp, wh, wl, mh, seen_k))
         p_call = call_ms(lambda: probe_verify_plain(tdb, wp, wh, wl, mh, seen_p))
         say(f"probe.cu {shape} {world} [{b}x{BLOOM_K}] mh={mh}: equal ({n_valid} windows, "
             f"{int(ncand.sum())} candidates, {placed} placed, {n_ver} verified, "
-            f"{int(want['overflow'].sum())} overflow rows); device kernel {k_dev} ms, bound "
-            f"{b_ms} ms ({b_by}); per call kernel {k_call} ms, plain {p_call} ms")
-        report[(shape, world)] = (k_dev, p_call, b_ms, b_by)
+            f"{int(want['overflow'].sum())} overflow rows); device kernel {k_dev} ms, plain "
+            f"full tier {p_dev} ms, bound {b_ms} ms ({b_by}); per call kernel {k_call} ms, "
+            f"plain {p_call} ms")
+        report[(shape, world)] = (k_dev, p_dev, b_ms, b_by, k_call, p_call)
     return {"max_abs_err": max_err, "times": report}
 
 
@@ -1434,7 +1468,7 @@ def main() -> int:
     say(f"kernel launches by path: {by_kernel}")
 
     def entry(name, source, replaces, times, max_err, shapes):
-        k_ms, p_ms, b_ms, b_by = times
+        k_ms, p_ms, b_ms, b_by = times[:4]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_kernel[name].values()),
                 "launches_by_path": by_kernel[name], "max_abs_err": max_err,
@@ -1442,7 +1476,12 @@ def main() -> int:
                 "library_ms": None, "shapes": shapes}
 
     def shape_times(t):
-        return {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3]}
+        """ms and plain_ms are device times (CUDA graphs); probe shapes add
+        per-call times, host work included, as call_ms and plain_call_ms."""
+        out = {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3]}
+        if len(t) > 4:
+            out.update(call_ms=t[4], plain_call_ms=t[5])
+        return out
 
     gate_src = "kmer_id_tpu_torch/csrc/gate.cu"
     print(json.dumps({"kernels": [

@@ -59,6 +59,7 @@ from kmer_id_tpu_torch.ops.fold import fold_targets_chain
 from kmer_id_tpu_torch.ops.gate import BLOOM_K, ReadPlanes, extract, window_gate
 from kmer_id_tpu_torch.ops.lookup import fp_candidates
 from kmer_id_tpu_torch.ops.probe import (
+    KERNEL_MAX_HITS,
     N_PLANES,
     cv_tier,
     mark_seen,
@@ -240,7 +241,11 @@ def _slot_nodes(rec, tinfo):
 class FpClassifier:
     """Fingerprint engine on one torch device, with the JAX engine's outer
     API: ``new_seen`` / ``submit_batch`` / ``collect`` / ``process_batch`` /
-    ``process_long`` / ``process_long_many`` / ``ucount``."""
+    ``process_long`` / ``process_long_many`` / ``ucount``.
+
+    ``max_hits`` is the per-read verified-hit budget.  On a CUDA device with
+    a Bloom-filtered DB it must lie in [1, ``KERNEL_MAX_HITS``] = [1, 32]:
+    the probe + verify kernel ranks with one warp lane per output column."""
 
     def __init__(
         self,
@@ -267,6 +272,10 @@ class FpClassifier:
         f = fpdb if fpdb is not None else build_fpdb(db, taxonomy)
         self.fpdb = f
         self.slot_target = f.slot_target
+        if self.device.type == "cuda" and f.bloom is not None and not (
+                1 <= max_hits <= KERNEL_MAX_HITS):
+            raise ValueError(f"max_hits {max_hits} outside [1, {KERNEL_MAX_HITS}]: the probe + "
+                             "verify kernel ranks with one warp lane per output column")
         self._db = device_tables(f, taxonomy, self.device)
         self._slot_node = None  # [n_slots] target node per slot (lazy)
 

@@ -1,10 +1,12 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and call the port's CUDA kernels.
 
 Each source under ``kmer_id_tpu_torch/csrc/`` is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
 ctypes.  The library is built at first use into ``build/kmer_id_tpu_torch/``
 at the repository root, keyed by a hash of its source and flags, so a fresh
-checkout builds it once and reuses it afterwards.
+checkout builds it once and reuses it afterwards.  :func:`check_tensor`,
+:func:`ptr` and :func:`launch` are what every kernel wrapper in ``ops/``
+uses to check its arguments and call a library's C entry.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import os
 import shutil
 import subprocess
 import time
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG, "csrc")
@@ -127,3 +131,32 @@ def load_probe():
                                       + [p, i] + [p] * 11 + [p])
     lib.kmer_probe_verify.restype = ctypes.c_int
     return lib
+
+
+def check_tensor(fn: str, name, t, dtype, shape, device):
+    """Raises unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` (the kernel wrappers' argument check; ``fn`` names the
+    wrapper in the message)."""
+    if t.device != device:
+        raise ValueError(f"{fn}: {name} on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{fn}: {name} is {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{fn}: {name} shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{fn}: {name} is not contiguous")
+
+
+def ptr(t):
+    """A tensor's data pointer as a ctypes argument."""
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def launch(fn, name: str, device, *args):
+    """Calls a kernel library's C entry ``fn`` with ``args`` and the current
+    stream of ``device``; raises on the cudaError value it returns."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")

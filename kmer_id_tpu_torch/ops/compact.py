@@ -20,9 +20,9 @@ of compacted extra payload planes (int32 [B, max_hits], 0 pad).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
+
+from kmer_id_tpu_torch.kernels.build import check_tensor, launch, load_compact, ptr
 
 SENT = 2**31 - 1
 MAX_EXTRAS = 2
@@ -62,35 +62,6 @@ def compact_ranks_plain(cand, valid, pos, max_hits: int, extras=()):
     )
 
 
-def check_tensor(fn: str, name, t, dtype, shape, device):
-    """Raises unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
-    ``device`` (the kernel wrappers' argument check; ``fn`` names the
-    wrapper in the message)."""
-    if t.device != device:
-        raise ValueError(f"{fn}: {name} on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{fn}: {name} is {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{fn}: {name} shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{fn}: {name} is not contiguous")
-
-
-def ptr(t):
-    """A tensor's data pointer as a ctypes argument."""
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def launch(fn, name: str, device, *args):
-    """Calls a kernel library's C entry ``fn`` with ``args`` and the current
-    stream of ``device``; raises on the cudaError value it returns."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-
-
 def compact_ranks_cuda(cand, valid, pos, max_hits: int, extras=()):
     """Rank compaction by the CUDA kernel ``csrc/compact.cu``.
 
@@ -98,8 +69,6 @@ def compact_ranks_cuda(cand, valid, pos, max_hits: int, extras=()):
     the wrapper materialises them.  Everything else must already be a
     contiguous CUDA tensor of the stated dtype and shape, or this raises.
     ``compact_ranks_cuda.launches`` counts kernel launches."""
-    from kmer_id_tpu_torch.kernels.build import load_compact
-
     if cand.dim() != 2:
         raise ValueError("compact_ranks_cuda: cand must be [B, C]")
     if len(extras) > MAX_EXTRAS:

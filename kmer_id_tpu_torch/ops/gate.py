@@ -29,7 +29,8 @@ from dataclasses import dataclass
 import torch
 
 from kmer_id_tpu_torch.core.codec import KSIZE
-from kmer_id_tpu_torch.ops.compact import check_tensor, compact_ranks_plain, launch, ptr
+from kmer_id_tpu_torch.kernels.build import check_tensor, launch, load_gate, ptr
+from kmer_id_tpu_torch.ops.compact import compact_ranks_plain
 from kmer_id_tpu_torch.ops.extract import extract_kmers, unpack_codes
 from kmer_id_tpu_torch.ops.lookup import bloom_pass
 
@@ -115,8 +116,6 @@ def window_gate_cuda(db, reads: ReadPlanes):
     """Gate mode by the CUDA kernel ``csrc/gate.cu`` (see module doc).
     Raises on a batch or table the kernel does not take, and if the build
     or the launch fails.  ``window_gate_cuda.launches`` counts launches."""
-    from kmer_id_tpu_torch.kernels.build import load_gate
-
     lead = _kernel_args(reads, "window_gate_cuda")
     dev = reads.device
     bloom = db["bloom"]
@@ -144,8 +143,6 @@ def extract_cuda(reads: ReadPlanes) -> dict:
     """Extract mode by the CUDA kernel ``csrc/gate.cu``.  Raises as
     :func:`window_gate_cuda` does; ``extract_cuda.launches`` counts
     launches."""
-    from kmer_id_tpu_torch.kernels.build import load_gate
-
     lead = _kernel_args(reads, "extract_cuda")
     dev = reads.device
     shape = (reads.rows, reads.width - KSIZE + 1)

@@ -39,14 +39,12 @@ from __future__ import annotations
 
 import torch
 
+from kmer_id_tpu_torch.kernels.build import check_tensor, launch, load_probe, ptr
 from kmer_id_tpu_torch.ops.compact import (
     SENT,
-    check_tensor,
     compact_ranks,
     compact_ranks_plain,
     interleave_planes,
-    launch,
-    ptr,
 )
 from kmer_id_tpu_torch.ops.lookup import fp_candidates
 
@@ -146,8 +144,6 @@ def probe_verify_cuda(db, wpos, whi, wlo, max_hits: int, seen=None) -> dict:
     (``max_hits`` in [1, 32], at most 32 windows per read), and if the
     build or the launch fails.  ``probe_verify_cuda.launches`` counts
     launches."""
-    from kmer_id_tpu_torch.kernels.build import load_probe
-
     name = "probe_verify_cuda"
     dev = wpos.device
     if dev.type != "cuda":

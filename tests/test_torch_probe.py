@@ -10,8 +10,9 @@
   ballot per plane and popcounts below the lane for the ranks, the
   (depth + 1, 63 - rank) max and the all-lanes consistency test) against the
   plain version.
-* The kernel itself against the plain version, on the card only (marked
-  ``cuda``; skips elsewhere).
+* The kernel itself against the plain version, and FpClassifier's check of
+  a budget the kernel cannot rank, on the card only (marked ``cuda``; skips
+  elsewhere).
 
 Comparison: every output bit for bit, ``seen`` over the slot ids (the plain
 version also writes its sink element), except ``tin``, ``tout`` and
@@ -48,6 +49,7 @@ from chip_smoke import (
     toy_world,
 )
 from kmer_id_tpu_torch.db.fpdb import build_fpdb, build_tinfo, fp_hashes
+from kmer_id_tpu_torch.engine.fpclassify import FpClassifier
 from kmer_id_tpu_torch.ops.compact import SENT
 from kmer_id_tpu_torch.ops.gate import BLOOM_K
 from kmer_id_tpu_torch.ops.probe import (
@@ -313,7 +315,7 @@ def test_dispatch_on_cpu_uses_the_plain_version(base):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,max_hits", [(8192, 32), (2048, 8), (37, 32), (64, 1)])
+@pytest.mark.parametrize("b,max_hits", [(8192, 32), (2048, 8), (2048, 32), (37, 32), (64, 1)])
 @pytest.mark.parametrize("world", WORLDS)
 def test_kernel_matches_plain_on_card(base, world, b, max_hits):
     if not torch.cuda.is_available():
@@ -329,3 +331,13 @@ def test_kernel_matches_plain_on_card(base, world, b, max_hits):
     torch.cuda.synchronize()
     bad, _ = probe_mismatch(got, want, fpdb.n_slots, (seen_k, seen_p))
     assert not bad, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_hits", [0, 33])
+def test_classifier_refuses_a_budget_the_kernel_cannot_rank_on_card(max_hits):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the budget limit is the kernel's")
+    packed, tax, *_ = toy_world(num_probes=3000, num_targ=64, batch=8, max_len=64)
+    with pytest.raises(ValueError, match=f"max_hits {max_hits} outside"):
+        FpClassifier(packed, tax, max_hits=max_hits, device="cuda")
