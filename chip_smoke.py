@@ -5,10 +5,11 @@
 
 Builds the three kernels from csrc/ (one nvcc per source, started
 together) and holds each against its plain PyTorch version: the window gate
-(gate.cu, both modes, both input forms) at the row shapes of classify-nx, of
-the long-read lane and of m3, and the rank compaction (compact.cu) at the
-shapes of classify-nx, of the long-read lane and of m3's and jobs' short
-batches, bit for bit; probe + verify (probe.cu) at the window shapes and
+(gate.cu, both modes, extract mode with and without its fstrand plane, both
+input forms) at the row shapes of classify-nx, of the long-read lane and of
+m3, and the rank compaction (compact.cu) at the shapes of classify-nx, of
+the long-read lane, of m3's and jobs' short batches and of the legacy
+engine's hit lists, bit for bit; probe + verify (probe.cu) at the window shapes and
 budgets of classify-nx, of the long-read lane and of m3's and jobs' short
 batches, on crafted copies of the nx DB's tables, bit for bit except where
 nothing downstream reads (ops/probe.py).  Holds
@@ -24,9 +25,20 @@ modules; then drives every classify path through the port's CLI:
   checked against the simulator; then a ~50-Mbase contig job timed through
   ``run_vf6`` and through ``process_long_many`` alone;
 * ``mitokmer`` (m3) against a 2M-probe text DB on 17,226 targets, with
-  ``f2`` ``none`` and a FASTQ, checked against the simulator.
+  ``f2`` ``none`` and a FASTQ, checked against the simulator;
+* the same three paths with ``--engine legacy`` (the cuckoo-table engine:
+  gate.cu's extract mode, the cuckoo lookup, compact.cu's hit list),
+  checked against the files the fingerprint engine wrote (themselves
+  checked against the simulator), the nx big sample timed and profiled;
+* the ``minalign > 0`` verify replay on a 400-kb genome world of 3,000
+  reads: cuda against cpu at ``minalign`` 0 and 200, the legacy engine
+  against the fingerprint engine at 0.
 
-Every phase that fails ends the run with a non-zero exit code.  Without a
+Every phase that fails ends the run with a non-zero exit code, and so does
+a path that did not go through its kernels: window_gate and probe_verify on
+each fingerprint path; on each legacy run window_extract once per device run
+(short-read batch, chunk group, replay) and compact_ranks once per
+short-read batch.  Without a
 CUDA device it exits 1 before doing anything.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
@@ -59,19 +71,24 @@ BATCH, MAX_LEN = 8192, 160
 P = MAX_LEN - 30 + 1  # windows per row
 JOB_BATCH, JOB_MAX_LEN = 2048, 512  # the vf6/m3 CLI defaults
 LONG_P = JOB_MAX_LEN - 30 + 1  # windows per chunk row of the long-read lane
-# (name, rows, columns, max_hits, position plane broadcast from one row).
-# The main path launches compact.cu at the dense shapes only: the Bloom-gate
-# call now runs inside gate.cu, the verify tiers inside probe.cu; their
-# shapes stay held here.
+# (name, rows, columns, max_hits, position plane, extra payload planes).
+# Position planes: "window" (column // 3, one row broadcast), "column" (the
+# column, one row broadcast), "random" (per row).  The fingerprint engine
+# launches compact.cu at the dense shapes only: the Bloom-gate call now runs
+# inside gate.cu, the verify tiers inside probe.cu; their shapes stay held
+# here.  The legacy engine launches it once per short-read batch, for the
+# hit list of compact_hits (no extras).
 KERNEL_SHAPES = (
-    ("bloom_gate", BATCH, P, 12, True),
-    ("fast_tier", BATCH, 36, 8, False),
-    ("slow_tier", BATCH, 36, 32, False),
-    ("dense_path", BATCH, 3 * P, 32, True),
-    ("long_bloom_gate", JOB_BATCH, LONG_P, 12, True),
-    ("long_verify_tier", JOB_BATCH, 36, 8, False),
-    ("long_dense_path", JOB_BATCH, 3 * LONG_P, 8, True),
-    ("job_dense_path", JOB_BATCH, 3 * LONG_P, 32, True),  # m3's and jobs' short batches
+    ("bloom_gate", BATCH, P, 12, "window", 2),
+    ("fast_tier", BATCH, 36, 8, "random", 2),
+    ("slow_tier", BATCH, 36, 32, "random", 2),
+    ("dense_path", BATCH, 3 * P, 32, "window", 2),
+    ("long_bloom_gate", JOB_BATCH, LONG_P, 12, "window", 2),
+    ("long_verify_tier", JOB_BATCH, 36, 8, "random", 2),
+    ("long_dense_path", JOB_BATCH, 3 * LONG_P, 8, "window", 2),
+    ("job_dense_path", JOB_BATCH, 3 * LONG_P, 32, "window", 2),  # m3's and jobs' short batches
+    ("legacy_nx", BATCH, P, 32, "column", 0),  # legacy engine: classify-nx batches
+    ("legacy_job", JOB_BATCH, LONG_P, 32, "column", 0),  # jobs' and m3's short batches
 )
 MITO_TARG, MITO_PROBES = 17_226, 2_000_000  # targets of mitochondria_tree.txt
 DENSITIES = (0.0, 0.003, 0.03, 1.0)
@@ -115,12 +132,12 @@ def card_line() -> str:
 # ------------------------------------------------------------ kernel phase
 
 
-def kernel_inputs(rng, b, c, density, broadcast_pos, device):
+def kernel_inputs(rng, b, c, density, pos_kind, device):
     """A [b, c] candidate plane laid out as three interleaved planes (so
     several planes of one window can be valid: cross-plane ties), int32
     candidates over the whole range, two extra planes with the high bit set
-    in about half the words, and the tie pattern of tests/test_compact.py
-    in row 0."""
+    in about half the words, the tie pattern of tests/test_compact.py in
+    row 0, and the position plane of ``pos_kind`` (KERNEL_SHAPES)."""
     import torch
 
     cand = rng.integers(-(2**31), 2**31, size=(b, c), dtype=np.int64).astype(np.int32)
@@ -130,8 +147,10 @@ def kernel_inputs(rng, b, c, density, broadcast_pos, device):
         valid[0, [3, 5, 10]] = True  # window 1 planes 0 and 2, window 3 plane 1
     ex = [rng.integers(0, 2**32, size=(b, c), dtype=np.uint64).astype(np.uint32)
           .view(np.int32) for _ in range(2)]
-    if broadcast_pos:
+    if pos_kind == "window":
         pos = (np.arange(c, dtype=np.int32) // 3)[None, :]
+    elif pos_kind == "column":
+        pos = np.arange(c, dtype=np.int32)[None, :]
     else:
         pos = np.repeat(rng.integers(0, P, size=(b, c // 3), dtype=np.int32), 3, axis=1)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
@@ -203,14 +222,15 @@ def kernel_phase(device="cuda") -> dict:
     rng = np.random.default_rng(SEED)
     max_err = 0
     report = {}
-    for name, b, c, mh, bcast in KERNEL_SHAPES:
+    for name, b, c, mh, pos_kind, n_ex in KERNEL_SHAPES:
         for d in DENSITIES:
-            cand, valid, pos, ex = kernel_inputs(rng, b, c, d, bcast, device)
+            cand, valid, pos, ex = kernel_inputs(rng, b, c, d, pos_kind, device)
+            ex = ex[:n_ex]
             got = compact_ranks_cuda(cand, valid, pos, mh, extras=ex)
             want = compact_ranks_plain(cand, valid, pos, mh, extras=ex)
             torch.cuda.synchronize()
             for g, w, what in zip(got[:3] + got[3], want[:3] + want[3],
-                                  ("pos", "cand", "ncand", "extra0", "extra1")):
+                                  ("pos", "cand", "ncand", "extra0", "extra1")[: 3 + n_ex]):
                 err = int((g.long() - w.long()).abs().max()) if g.numel() else 0
                 max_err = max(max_err, err)
                 if not torch.equal(g, w):
@@ -226,10 +246,11 @@ def kernel_phase(device="cuda") -> dict:
 
             k_dev, p_dev = device_ms(kern), device_ms(plain)
             k_call, p_call = call_ms(kern), call_ms(plain)
-            # the validity plane read once, the payloads (pos, cand, two
+            # the validity plane read once, the payloads (pos, cand, the
             # extras) only at the placed columns, the outputs written once
             placed = int(want[2].clamp(max=mh).sum())
-            b_ms, b_by = bound(b * c + 16 * placed + b * mh * 16 + b * 4, b * c)
+            b_ms, b_by = bound(b * c + 4 * (2 + n_ex) * placed + b * mh * 4 * (2 + n_ex) + b * 4,
+                               b * c)
             say(f"kernel {name} [{b}x{c}] mh={mh} density={d}: bit-equal; device "
                 f"kernel {k_dev} ms, plain {p_dev} ms, bound {b_ms} ms ({b_by}); per call "
                 f"kernel {k_call} ms, plain {p_call} ms")
@@ -274,8 +295,10 @@ def gate_bloom(rng):
 def gate_rows(rng, b, l, lens, bloom, s4, s5):
     """Read rows for the gate: random bases with N runs, invalid bases at
     both row ends, lengths below KSIZE and equal to the width, a planted
-    probe in every third row and two probe-dense rows (every window's Bloom
-    bits set: npass > 12).  Sets those probes' bits in ``bloom``.  Returns
+    probe in every third row, two probe-dense rows (every window's Bloom
+    bits set: npass > 12) and two rows holding a palindromic 30-mer (its
+    own reverse complement: the forward key equals the canonical one, and
+    fstrand is False).  Sets the probes' bits in ``bloom``.  Returns
     (codes uint8 [b, l], lengths int32 [b])."""
     from kmer_id_tpu_torch.core.codec import KSIZE, canonical_kmers
     from kmer_id_tpu_torch.db.fpdb import bloom_hashes
@@ -306,6 +329,10 @@ def gate_rows(rng, b, l, lens, bloom, s4, s5):
     flat = bloom.reshape(-1)
     for bit in bits:
         np.bitwise_or.at(flat, blk * 4 + (bit >> 5), np.uint32(1) << (bit & 31).astype(np.uint32))
+    for r in (10, 11):
+        half = rng.integers(0, 4, size=KSIZE // 2, dtype=np.uint8)
+        p = int(rng.integers(0, lengths[r] - KSIZE + 1))
+        codes[r, p : p + KSIZE] = np.concatenate([half, 3 - half[::-1]])
     return codes, lengths
 
 
@@ -340,10 +367,11 @@ def gate_forms(rng, codes, lengths, device):
 
 
 def gate_phase(device="cuda") -> dict:
-    """csrc/gate.cu against its plain version, bit for bit, in both modes and
-    both input forms at the nx, long-lane and m3 shapes; device times of
-    the kernel and the plain version beside the bound.  Returns the
-    numbers for the kernels line (nx shape, packed form)."""
+    """csrc/gate.cu against its plain version, bit for bit, in both modes
+    (extract mode with and without the fstrand plane) and both input forms
+    at the nx, long-lane and m3 shapes; device times of the kernel and the
+    plain version beside the bound.  Returns the numbers for the kernels
+    line (nx shape, packed form)."""
     import torch
 
     from kmer_id_tpu_torch.ops.gate import (
@@ -364,11 +392,15 @@ def gate_phase(device="cuda") -> dict:
         for form, reads in gate_forms(rng, codes, lengths, device).items():
             got_g = window_gate_cuda(db, reads)
             want_g = window_gate_plain(db, reads)
-            got_x = extract_cuda(reads)
-            want_x = extract_plain(reads)
+            got_x = extract_cuda(reads, fstrand=True)
+            want_x = extract_plain(reads, fstrand=True)
+            got_x3 = extract_cuda(reads)
             torch.cuda.synchronize()
             pairs = list(zip(("wpos", "whi", "wlo", "npass"), got_g, want_g))
-            pairs += [(k, got_x[k], want_x[k]) for k in ("hi", "lo", "valid")]
+            pairs += [(k, got_x[k], want_x[k]) for k in ("hi", "lo", "valid", "fstrand")]
+            pairs += [(k + " (no fstrand)", got_x3[k], want_x[k]) for k in ("hi", "lo", "valid")]
+            if "fstrand" in got_x3:
+                raise AssertionError("extract_cuda wrote fstrand unasked")
             for what, g, w in pairs:
                 err = int((g.long() - w.long()).abs().max())
                 max_err = max(max_err, err)
@@ -379,6 +411,9 @@ def gate_phase(device="cuda") -> dict:
             valid = int(want_x["valid"].sum())
             if int(npass.max()) <= BLOOM_K or int((npass > 0).sum()) < b // 4:
                 raise AssertionError(f"gate rows at {name}: no probe-dense or too few passing rows")
+            fs = want_x["fstrand"] & want_x["valid"]
+            if not (bool(fs.any()) and bool((want_x["valid"] & ~want_x["fstrand"]).any())):
+                raise AssertionError(f"gate rows at {name}: fstrand all one way")
             out_bytes = b * (3 * BLOOM_K + 1) * 4
             in_bytes = lengths.nbytes + (
                 reads.packed.numel() * 4 + reads.exc.numel() * 4 if form == "packed"
@@ -386,11 +421,15 @@ def gate_phase(device="cuda") -> dict:
             p = l - 29
             g_bound = bound(in_bytes + 16 * valid + out_bytes, GATE_OPS_PER_WINDOW * b * p)
             x_bound = bound(in_bytes + b * p * 9, GATE_OPS_PER_WINDOW // 2 * b * p)
+            xf_bound = bound(in_bytes + b * p * 10, GATE_OPS_PER_WINDOW // 2 * b * p)
             times = {
                 "gate": (device_ms(lambda: window_gate_cuda(db, reads)),
                          device_ms(lambda: window_gate_plain(db, reads)), *g_bound),
                 "extract": (device_ms(lambda: extract_cuda(reads)),
                             device_ms(lambda: extract_plain(reads)), *x_bound),
+                "extract_fstrand": (device_ms(lambda: extract_cuda(reads, fstrand=True)),
+                                    device_ms(lambda: extract_plain(reads, fstrand=True)),
+                                    *xf_bound),
             }
             for mode, (k_ms, p_ms, b_ms, b_by) in times.items():
                 say(f"gate.cu {mode} {name} [{b}x{l}] {form}: bit-equal ({valid} valid windows, "
@@ -892,6 +931,16 @@ def make_db(rng, n_probes, num_targ, db_dir, cache_dir):
     return packed.keys, packed.target, parent.tolist()
 
 
+def sample_outputs(d) -> dict:
+    """{name: text} of the _result.txt and _reads.txt files in ``d``."""
+    out = {}
+    for name in sorted(os.listdir(d)):
+        if name.endswith(("_result.txt", "_reads.txt")):
+            with open(os.path.join(d, name)) as f:
+                out[name] = f.read()
+    return out
+
+
 def write_reads(rng, path, n, plant_chars, tag):
     """n FASTQ.gz reads of READ_LEN bases with 0-3 planted probes (either
     strand), an N in 1% of reads and a low-quality tail in 10%."""
@@ -1005,12 +1054,11 @@ def nx_phase(device="cuda", n_probes=N_PROBES, big=BIG_READS, small=SMALL_READS,
     sim = RefSim(probe_dict(keys, targets, records, False), parent, num_targ=NUM_TARG,
                  u_is_t=False, savenum=12, variant="nx")
     sim.feed(records)
-    with open(os.path.join(fq, "small_result.txt")) as f:
-        if f.read().splitlines() != sim.result_lines():
-            raise AssertionError("small sample: _result.txt != RefSim")
-    with open(os.path.join(fq, "small_reads.txt")) as f:
-        if f.read() != "".join(f">{t}:{a}\n{s}\n" for t, a, s in sim.saved):
-            raise AssertionError("small sample: _reads.txt != RefSim")
+    outputs = sample_outputs(fq)
+    if outputs["small_result.txt"].splitlines() != sim.result_lines():
+        raise AssertionError("small sample: _result.txt != RefSim")
+    if outputs["small_reads.txt"] != "".join(f">{t}:{a}\n{s}\n" for t, a, s in sim.saved):
+        raise AssertionError("small sample: _reads.txt != RefSim")
     say(f"nx small sample: {sim.reads} reads, _result.txt and _reads.txt equal "
         f"RefSim (checked in {time.perf_counter() - t0:.1f} s)")
 
@@ -1032,6 +1080,7 @@ def nx_phase(device="cuda", n_probes=N_PROBES, big=BIG_READS, small=SMALL_READS,
         prof = profile_phase(device, db_dir, cache, os.path.join(fq, "big_R1_tr.fastq.gz"),
                              batch, max_len)
     return {
+        "outputs": outputs, "batch": batch, "max_len": max_len,
         "reads": reads, "wall_s": m["big"]["wall_s"],
         "reads_per_s": m["big"]["reads_per_s"], "classified": m["big"]["classified"],
         "small_wall_s": m["small"]["wall_s"], "cli_s": run_s,
@@ -1144,6 +1193,7 @@ def jobs_phase(device, db, work=WORK, batch=JOB_BATCH, max_len=JOB_MAX_LEN,
     t0 = time.perf_counter()
     records = list(iter_fastq_gz(fq)) + list(iter_fasta_plain(fa))
     probes = probe_dict(keys, targets, records, True)
+    checked = {}
     for jname, job, target in (("jobs_mixed", "mixed", 0), ("jobs_target", "target", t_one)):
         sim = RefSim(probes, parent, num_targ=NUM_TARG, u_is_t=True, savenum=12,
                      save_target=target, variant="vf6")
@@ -1162,11 +1212,13 @@ def jobs_phase(device, db, work=WORK, batch=JOB_BATCH, max_len=JOB_MAX_LEN,
                 raise AssertionError(f"job {job}: _target_reads.txt != RefSim")
         elif os.path.exists(os.path.join(root, jname, f"{job}_target_reads.txt")):
             raise AssertionError("a job without -target wrote _target_reads.txt")
+        checked[job] = out
     say(f"jobs mixed/target: {sim.reads} reads ({sum(sim.gcount[2:])} classified, "
         f"{len(sim.saved_target)} of target {t_one}): _result.txt, _reads.txt and "
         f"_target_reads.txt equal RefSim (checked in {time.perf_counter() - t0:.1f} s)")
     timed = timed_long_job(device, rng, root, keys, plant, cache, batch, max_len, timed_mbase)
-    return {"launches": launches, **timed}
+    return {"launches": launches, "checked": checked, "files": (fq, fa), "t_one": t_one,
+            "root": root, "flags": engine, **timed}
 
 
 def timed_long_job(device, rng, root, keys, plant, cache, batch, max_len, mbase) -> dict:
@@ -1314,6 +1366,7 @@ def m3_phase(device, work=WORK, n_probes=MITO_PROBES, num_targ=MITO_TARG,
     probes = probe_dict(keys, targets, fa_records + fq_records, True)
     sim = RefSim(probes, parent.tolist(), num_targ=num_targ, u_is_t=True, variant="m3")
     launches = dict.fromkeys(KERNELS, 0)
+    checked = None
     for f2, recs in (("none", fa_records), (fq2, fq_records)):
         out = os.path.join(work, "mito_out")
         reset_counts()
@@ -1324,25 +1377,34 @@ def m3_phase(device, work=WORK, n_probes=MITO_PROBES, num_targ=MITO_TARG,
         launches = {k: n + read_counts()[k] for k, n in launches.items()}
         run_s = time.perf_counter() - t0
         sim.feed(recs)  # f2 given: the same sample, fed on after f1
-        with open(os.path.join(w, "result.txt")) as f:
-            if f.read().splitlines() != sim.result_lines():
-                raise AssertionError(f"mitokmer f2={os.path.basename(f2)}: result.txt != RefSim")
-        with open(os.path.join(out, "mitokmer_result.csv")) as f:
-            csv = f.read().splitlines()
+        got = m3_outputs(w, out)
+        if got[0].splitlines() != sim.result_lines():
+            raise AssertionError(f"mitokmer f2={os.path.basename(f2)}: result.txt != RefSim")
+        csv = got[1].splitlines()
         if csv[0] != "taxid,reads,abundance" or len(csv) < 4:
             raise AssertionError("mitokmer_result.csv malformed")
+        checked = checked or got  # the f2 = none run's
         say(f"m3 mitokmer f2={os.path.basename(f2)}: {sim.reads} reads "
             f"({sum(sim.gcount[2:])} classified) in {run_s:.1f} s (text DB parse and "
             f"table build included); result.txt equals RefSim; mitokmer_result.csv "
             f"{len(csv)} lines")
-    return {"launches": launches}
+    return {"launches": launches, "checked": checked, "wdir": w, "f1": fa}
 
 
-def profile_phase(device, db_dir, cache, fastq_path, batch, max_len, n_batches=8):
-    """The engine over ``n_batches`` batches of a sample at the main path's
-    shape: wall time without the profiler, then device time by kernel and by
-    op with torch.profiler, and the device's busy share of that wall time.
-    Decoding is done before either timed window."""
+def m3_outputs(wdir, out) -> tuple:
+    """(result.txt, mitokmer_result.csv) texts of a mitokmer run."""
+    with open(os.path.join(wdir, "result.txt")) as f, \
+            open(os.path.join(out, "mitokmer_result.csv")) as g:
+        return f.read(), g.read()
+
+
+def profile_phase(device, db_dir, cache, fastq_path, batch, max_len, n_batches=8,
+                  engine="fp"):
+    """The engine (``engine``: fp or legacy) over ``n_batches`` batches of a
+    sample at the main path's shape: wall time without the profiler, then
+    device time by kernel and by op with torch.profiler, and the device's
+    busy share of that wall time.  Decoding is done before either timed
+    window."""
     import itertools
 
     import torch
@@ -1356,7 +1418,8 @@ def profile_phase(device, db_dir, cache, fastq_path, batch, max_len, n_batches=8
 
     db = load_db(os.path.join(db_dir, "bData10.txt"), os.path.join(db_dir, "btree_10.txt"),
                  os.path.join(db_dir, "probes10.txt.gz"), num_targ=NUM_TARG, cache_dir=cache)
-    cfg = ClassifyConfig.preset("nx", num_targ=NUM_TARG, batch_size=batch, max_len=max_len)
+    cfg = ClassifyConfig.preset("nx", num_targ=NUM_TARG, batch_size=batch, max_len=max_len,
+                                engine=engine)
     clf = make_classifier(db, cfg, cache_dir=cache, device=device)
     rb = ReadBatcher(batch, max_len, u_is_t=False)
     recs = itertools.islice(iter_fastq_gz(fastq_path), (n_batches + 1) * batch)
@@ -1380,7 +1443,7 @@ def profile_phase(device, db_dir, cache, fastq_path, batch, max_len, n_batches=8
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     nb = len(items) - 1
     per_batch = sum(e.count for e in dev) / nb
-    say(f"profile: {nb} batches of {batch}x{max_len}: wall {wall * 1e3 / nb} ms/batch "
+    say(f"profile {engine}: {nb} batches of {batch}x{max_len}: wall {wall * 1e3 / nb} ms/batch "
         f"unprofiled; device busy {busy_ms / nb} ms/batch "
         f"({100 * busy_ms / (wall * 1e3)}% of the wall time), {per_batch} device "
         f"launches/batch")
@@ -1395,6 +1458,271 @@ def profile_phase(device, db_dir, cache, fastq_path, batch, max_len, n_batches=8
             f"{e.key}")
     return {"wall_ms_per_batch": wall * 1e3 / nb, "busy_ms_per_batch": busy_ms / nb,
             "launches_per_batch": per_batch}
+
+
+# ---------------------------------------------------------- legacy phase
+
+
+LEGACY_MODES = ("compact", "targets", "detail")
+
+
+class legacy_runs:
+    """While open, counts the legacy engine's device runs by mode
+    (``Classifier._run``: one per short-read batch in ``compact`` mode, per
+    chunk group or overflow replay in ``targets``, per verify batch in
+    ``detail``), so a run's kernel launches can be held against them."""
+
+    def __enter__(self):
+        from kmer_id_tpu_torch.engine.classify import Classifier
+
+        self.counts = dict.fromkeys(LEGACY_MODES, 0)
+        self._run = run = Classifier._run
+        counts = self.counts
+
+        def counted(clf, seen, reads, mode, max_steps=None):
+            counts[mode] += 1
+            return run(clf, seen, reads, mode, max_steps)
+
+        Classifier._run = counted
+        return self.counts
+
+    def __exit__(self, *exc):
+        from kmer_id_tpu_torch.engine.classify import Classifier
+
+        Classifier._run = self._run
+        return False
+
+
+def check_legacy_launches(path: str, launches: dict, runs: dict) -> None:
+    """A legacy run must launch window_extract once per device run (every
+    short-read batch, chunk group and replay) and compact_ranks once per
+    short-read batch, and neither fingerprint kernel."""
+    if runs["compact"] <= 0:
+        raise AssertionError(f"{path}: the legacy engine ran no short-read batch")
+    if launches["window_extract"] != sum(runs.values()):
+        raise AssertionError(f"{path}: window_extract launched {launches['window_extract']} "
+                             f"times for {runs} legacy runs")
+    if launches["compact_ranks"] != runs["compact"]:
+        raise AssertionError(f"{path}: compact_ranks launched {launches['compact_ranks']} times "
+                             f"for {runs['compact']} short-read batches")
+    if launches["window_gate"] or launches["probe_verify"]:
+        raise AssertionError(f"{path}: a fingerprint kernel ran under --engine legacy")
+
+
+def legacy_cli(path: str, argv: list, device) -> tuple[dict, dict, float]:
+    """One legacy CLI run on ``device`` with the counts reset before it and
+    read after, its launches checked on a card: (kernel launches, legacy
+    runs by mode, seconds)."""
+    from kmer_id_tpu_torch import cli
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with legacy_runs() as runs:
+        rc = cli.main(argv + ["--engine", "legacy"])
+    run_s = time.perf_counter() - t0
+    launches = read_counts()
+    if rc != 0:
+        raise AssertionError(f"{path} --engine legacy exited {rc}")
+    if device != "cpu":
+        check_legacy_launches(path, launches, runs)
+    return launches, dict(runs), run_s
+
+
+def legacy_phase(device, nx, jobs, m3, work=WORK) -> dict:
+    """The legacy engine (``--engine legacy``) on every classify path, at
+    the fingerprint phases' DBs and inputs:
+
+    * classify-nx on the nx phase's samples (its 33M-probe cache holds the
+      cuckoo table): every output file equal to the fingerprint engine's,
+      whose small sample equals RefSim; the big sample's reads/s; a
+      profile window of the engine;
+    * classify-jobs, jobs ``mixed`` and ``target`` (the long-read path one
+      read at a time, the 1.2-Mbase record included): equal to the jobs
+      phase's files, which equal RefSim;
+    * mitokmer with ``f2`` none on the m3 DB: equal to the m3 phase's.
+
+    Each run's launches are held to its device runs (check_legacy_launches).
+    """
+    keys, targets, parent, db_dir, cache, _ = nx["db"]
+    out = {}
+    fq = os.path.join(work, "fastq")
+    lfq = os.path.join(work, "fastq_legacy")
+    os.makedirs(lfq)
+    for name in os.listdir(fq):
+        if name.endswith("_tr.fastq.gz"):
+            os.symlink(os.path.join(fq, name), os.path.join(lfq, name))
+    metrics = os.path.join(work, "metrics_legacy.jsonl")
+    launches, runs, run_s = legacy_cli("nx", [
+        "classify-nx", lfq, "--db-dir", db_dir, "--cache-dir", cache, "--num-targ",
+        str(NUM_TARG), "--batch-size", str(nx["batch"]), "--max-len", str(nx["max_len"]),
+        "--device", device, "--metrics", metrics], device)
+    got = sample_outputs(lfq)
+    if got != nx["outputs"]:
+        bad = sorted(k for k in nx["outputs"] if got.get(k) != nx["outputs"][k])
+        raise AssertionError(f"nx --engine legacy: {bad} differ from the fingerprint engine's")
+    with open(metrics) as f:
+        m = {r["sample"]: r for r in map(json.loads, f)}
+    say(f"legacy nx: small and big samples' files equal the fingerprint engine's (small: "
+        f"RefSim); big sample {m['big']['reads']} reads in {m['big']['wall_s']} s = "
+        f"{m['big']['reads_per_s']} reads/s; CLI {run_s:.1f} s; launches {launches}; "
+        f"legacy runs {runs}")
+    out["nx"] = {"launches": launches, "runs": runs, "reads": m["big"]["reads"],
+                 "wall_s": m["big"]["wall_s"], "reads_per_s": m["big"]["reads_per_s"]}
+    if device != "cpu":
+        out["nx"]["profile"] = profile_phase(
+            device, db_dir, cache, os.path.join(fq, "big_R1_tr.fastq.gz"), nx["batch"],
+            nx["max_len"], engine="legacy")
+
+    root = jobs["root"]
+    jfq, jfa = jobs["files"]
+    total = dict.fromkeys(KERNELS, 0)
+    truns = dict.fromkeys(LEGACY_MODES, 0)
+    for jname, job, target in (("legacy_mixed", "mixed", 0),
+                               ("legacy_target", "target", jobs["t_one"])):
+        os.makedirs(os.path.join(root, jname))
+        with open(os.path.join(root, jname, jname + ".txt"), "w") as f:
+            f.write(f"{job} 2\n{jfq}\n{jfa}\n")
+        launches, runs, run_s = legacy_cli(f"jobs {job}", [
+            "classify-jobs", "-name", "bact", "-jname", jname, "--root", root,
+            "-target", str(target)] + jobs["flags"], device)
+        if runs["targets"] <= 0:
+            raise AssertionError(f"jobs {job} --engine legacy: no chunk group ran")
+        for k, want in jobs["checked"][job].items():
+            with open(os.path.join(root, jname, f"{job}_{k}.txt")) as f:
+                if f.read() != want:
+                    raise AssertionError(f"jobs {job} --engine legacy: _{k}.txt != RefSim")
+        total = {k: n + launches[k] for k, n in total.items()}
+        truns = {k: n + runs[k] for k, n in truns.items()}
+        say(f"legacy jobs {job}: files equal RefSim; {run_s:.1f} s; launches {launches}; "
+            f"legacy runs {runs}")
+    out["jobs"] = {"launches": total, "runs": truns}
+
+    mout = os.path.join(work, "mito_out_legacy")
+    launches, runs, run_s = legacy_cli("m3", ["mitokmer", "-w", m3["wdir"], "-d", mout, "-i",
+                                              m3["f1"], "none", "--device", device], device)
+    if m3_outputs(m3["wdir"], mout) != m3["checked"]:
+        raise AssertionError("mitokmer --engine legacy: result.txt or the CSV != RefSim's run")
+    say(f"legacy m3 mitokmer f2=none: result.txt and mitokmer_result.csv equal the fingerprint "
+        f"engine's (RefSim); {run_s:.1f} s (text DB parse and cuckoo build included); "
+        f"launches {launches}; legacy runs {runs}")
+    out["m3"] = {"launches": launches, "runs": runs}
+    return out
+
+
+VERIFY_EDGES = [(1, 2), (2, 3), (2, 4), (1, 5), (5, 6)]
+VERIFY_TARGETS = (3, 4, 6, 5)  # of the four genomes
+
+
+def verify_world(work, n_genomes=4, glen=100_000, seed=SEED + 5):
+    """A genome world crafted as tests/test_verify.py's: ``n_genomes``
+    genomes of ``glen`` bases on disk (fadir/acc<i>.fasta.gz), probes every
+    37 bases of each with their true positions and strands; reads: 2,000
+    genuine (150 bp, a third reverse-complemented), 300 with a 5-base and
+    200 with a 20-base low-quality head (within and beyond the band), 300
+    chimeric (a probe in foreign sequence) and 200 random, shuffled.
+    Returns (fadir, accessions, ProbeRecords, records)."""
+    from kmer_id_tpu_torch.core.codec import KSIZE, canonical_kmers, encode_bases
+    from kmer_id_tpu_torch.db.probes import ProbeRecords
+
+    rng = np.random.default_rng(seed)
+    fadir = os.path.join(work, "fadir")
+    os.makedirs(fadir)
+    seqs, accs = [], [f"acc{i}" for i in range(n_genomes)]
+    cols = [[] for _ in range(5)]
+    for i, acc in enumerate(accs):
+        g = ACGT[rng.integers(0, 4, size=glen, dtype=np.uint8)].tobytes().decode()
+        seqs.append(g)
+        with gzip.open(os.path.join(fadir, acc + ".fasta.gz"), "wt", compresslevel=1) as f:
+            f.write(">contig1\n" + "\n".join(g[s : s + 80] for s in range(0, glen, 80)) + "\n")
+        last = np.arange(KSIZE, glen, 37)
+        key, _, fwd = canonical_kmers(encode_bases(g))
+        cols[0].append(key[last - KSIZE + 1])
+        cols[1].append(np.full(len(last), VERIFY_TARGETS[i], np.int32))
+        cols[2].append(np.full(len(last), i, np.int32))
+        cols[3].append((1 + last).astype(np.int32))
+        cols[4].append(fwd[last - KSIZE + 1])
+    keys, target, org, position, fstrand = (np.concatenate(c) for c in cols)
+    rec = ProbeRecords(keys=keys, target=target, org=org, position=position,
+                       fstrand=fstrand.astype(bool), count=np.ones(len(keys), np.int32))
+
+    def dna(n):
+        return ACGT[rng.integers(0, 4, size=n, dtype=np.uint8)].tobytes().decode()
+
+    comp = str.maketrans("ACGT", "TGCA")
+    records = []
+    for i in range(2000):
+        g = seqs[int(rng.integers(n_genomes))]
+        s = int(rng.integers(0, glen - 150))
+        seq = g[s : s + 150]
+        records.append((f"@g{i}", seq.translate(comp)[::-1] if i % 3 == 2 else seq, "J" * 150))
+    for tag, head, n in (("t", 5, 300), ("T", 20, 200)):
+        for i in range(n):
+            g = seqs[int(rng.integers(n_genomes))]
+            s = int(rng.integers(0, glen - 150))
+            records.append((f"@{tag}{i}", dna(head) + g[s : s + 150], "#" * head + "J" * 150))
+    for i in range(300):
+        g = seqs[int(rng.integers(n_genomes))]
+        last = int(rng.choice(np.arange(KSIZE, glen, 37)))
+        records.append((f"@c{i}", dna(60) + g[last - KSIZE + 1 : last + 1] + dna(60), "J" * 150))
+    records += [(f"@r{i}", dna(150), "J" * 150) for i in range(200)]
+    order = rng.permutation(len(records))
+    return fadir, accs, rec, [records[i] for i in order]
+
+
+def verify_phase(device="cuda", work=WORK, minalign=200) -> dict:
+    """The ``minalign > 0`` verify replay on the card against the CPU: the
+    verify world (verify_world) through SampleProcessor at ``minalign`` 0
+    and ``minalign`` > 0; gcount, ucount and the saved reads must be equal
+    between cuda and cpu, and at ``minalign`` 0 between the legacy and the
+    fingerprint engines; the gate must reject reads.  Returns the counts."""
+    import io
+
+    from kmer_id_tpu_torch.config import ClassifyConfig
+    from kmer_id_tpu_torch.core.taxonomy import Taxonomy
+    from kmer_id_tpu_torch.db.probes import pack_probes
+    from kmer_id_tpu_torch.engine.pipeline import LoadedDB, SampleProcessor, make_classifier
+
+    t0 = time.perf_counter()
+    fadir, accs, rec, records = verify_world(work)
+    num_targ = 8
+    packed = pack_probes(rec, num_targ=num_targ)
+    db = LoadedDB(packed, Taxonomy.from_edges(VERIFY_EDGES, num_nodes=num_targ), None,
+                  num_targ, len(packed))
+    say(f"verify: {len(accs)} genomes, {len(packed)} probes, {len(records)} reads made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    res = {}
+    for m, engine, dev in ((0, "fp", device), (0, "legacy", device), (0, "legacy", "cpu"),
+                           (minalign, "legacy", device), (minalign, "legacy", "cpu")):
+        cfg = ClassifyConfig.preset("vf6", num_targ=num_targ, batch_size=JOB_BATCH, max_len=192,
+                                    minalign=m, fadir=fadir, accessions=accs, engine=engine)
+        buf = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with legacy_runs() as runs:
+            sp = SampleProcessor(make_classifier(db, cfg, device=dev), cfg, reads_out=buf)
+            sp.feed(records)
+            r = sp.finish()
+        launches = read_counts()
+        res[(m, engine, dev)] = (r.gcount.tolist(), r.ucount.tolist(), r.reads, buf.getvalue())
+        if engine == "legacy" and dev != "cpu":  # its launches
+            want = {"window_extract": sum(runs.values()),
+                    "compact_ranks": runs["compact"] if m == 0 else 0}
+            if {k: launches[k] for k in want} != want or not runs["detail" if m else "compact"]:
+                raise AssertionError(f"verify minalign {m}: launches {launches} for runs {runs}")
+        say(f"verify minalign {m} {engine} {dev}: {r.reads} reads, gcount {r.gcount.tolist()}, "
+            f"ucount sum {int(r.ucount.sum())}, {buf.getvalue().count('>')} saved reads in "
+            f"{time.perf_counter() - t0:.1f} s; legacy runs {dict(runs)}")
+    for m in (0, minalign):
+        if res[(m, "legacy", device)] != res[(m, "legacy", "cpu")]:
+            raise AssertionError(f"verify minalign {m}: {device} != cpu")
+    if res[(0, "fp", device)] != res[(0, "legacy", device)]:
+        raise AssertionError("verify minalign 0: the legacy engine != the fingerprint engine")
+    base, gated = res[(0, "legacy", device)], res[(minalign, "legacy", device)]
+    if not gated[0][0] > base[0][0] or not sum(gated[0][2:]) > 0:
+        raise AssertionError("verify: the gate rejected nothing, or everything")
+    say(f"verify: cuda == cpu at minalign 0 and {minalign}, legacy == fp at 0; the gate "
+        f"left {gated[0][0]} reads unclassified (ungated {base[0][0]})")
+    return {"ungated": base[0], "gated": gated[0]}
 
 
 def main() -> int:
@@ -1443,17 +1771,25 @@ def main() -> int:
     t0 = time.perf_counter()
     m3 = m3_phase("cuda")
     say(f"phase m3: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lg = legacy_phase("cuda", nx, jobs, m3)
+    say(f"phase legacy: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    vr = verify_phase("cuda")
+    say(f"phase verify: {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(WORK, ignore_errors=True)
-    paths = {"nx": nx["launches"], "jobs": jobs["launches"], "m3": m3["launches"]}
+    fp_paths = {"nx": nx["launches"], "jobs": jobs["launches"], "m3": m3["launches"]}
+    paths = {**fp_paths, **{f"{p}_legacy": r["launches"] for p, r in lg.items()}}
     by_kernel = {k: {path: n[k] for path, n in paths.items()} for k in KERNELS}
     for k in ("window_gate", "probe_verify"):
-        for path, n in by_kernel[k].items():
-            if n <= 0:
+        for path in fp_paths:
+            if by_kernel[k][path] <= 0:
                 raise AssertionError(f"the {path} path launched {k} no time")
-    # the dense path and the overflow replay: jobs' probe-dense contigs
+    # the fingerprint engine's dense path and overflow replay: jobs'
+    # probe-dense contigs; the legacy paths were held by check_legacy_launches
     for k in ("window_extract", "compact_ranks"):
-        if sum(by_kernel[k].values()) <= 0:
-            raise AssertionError(f"no path launched {k}")
+        if sum(by_kernel[k][path] for path in fp_paths) <= 0:
+            raise AssertionError(f"no fingerprint path launched {k}")
     for name in ("jax", "kmer_id_tpu"):
         if name in sys.modules:
             raise AssertionError(f"{name} was imported")
@@ -1465,6 +1801,13 @@ def main() -> int:
     say(f"long lane on {card} (batch {JOB_BATCH}, max_len {JOB_MAX_LEN}, "
         f"{nx['n_probes']} probes, {jobs['mbase']} Mbase of 2-50 kb contigs): driver "
         f"{jobs['driver_mbase_s']} Mbase/s, engine {jobs['engine_mbase_s']} Mbase/s")
+    lp = lg["nx"]["profile"]
+    say(f"legacy nx big sample: {lg['nx']['reads']} reads in {lg['nx']['wall_s']} s = "
+        f"{lg['nx']['reads_per_s']} reads/s on {card} (batch {BATCH}, max_len {MAX_LEN}, "
+        f"{nx['n_probes']} probes); engine {lp['wall_ms_per_batch']} ms/batch, device busy "
+        f"{lp['busy_ms_per_batch']} ms/batch, {lp['launches_per_batch']} launches/batch")
+    say(f"legacy runs by path: { {p: r['runs'] for p, r in lg.items()} }")
+    say(f"verify world on {card}: ungated gcount {vr['ungated']}, gated {vr['gated']}")
     say(f"kernel launches by path: {by_kernel}")
 
     def entry(name, source, replaces, times, max_err, shapes):
@@ -1491,14 +1834,14 @@ def main() -> int:
                if m == "gate"}),
         entry("window_extract", gate_src, "kmer_id_tpu/ops/extract.py:34",
               gr["times"][("extract", "nx", "packed")], gr["max_abs_err"],
-              {f"{n} {f}": shape_times(t) for (m, n, f), t in gr["times"].items()
-               if m == "extract"}),
+              {f"{m} {n} {f}": shape_times(t) for (m, n, f), t in gr["times"].items()
+               if m != "gate"}),
         entry("probe_verify", "kmer_id_tpu_torch/csrc/probe.cu",
               "kmer_id_tpu/ops/compact.py:101", pr["times"][("nx", "mixed")],
               pr["max_abs_err"],
               {f"{s} {w}": shape_times(t) for (s, w), t in pr["times"].items()}),
         entry("compact_ranks", "kmer_id_tpu_torch/csrc/compact.cu",
-              "kmer_id_tpu/ops/compact.py:101", kr["times"]["long_dense_path"], kr["max_abs_err"],
+              "kmer_id_tpu/ops/compact.py:101", kr["times"]["legacy_nx"], kr["max_abs_err"],
               {name: shape_times(t) for name, t in kr["times"].items()}),
     ]}))
     print(card)

@@ -5,11 +5,19 @@
     python -m kmer_id_tpu_torch.cli classify-m3 -wdir DIR -f1 READS [-f2 READS|none] [...]
     python -m kmer_id_tpu_torch.cli mitokmer -w DIR -d OUT -i READS1 READS2|none [...]
     python -m kmer_id_tpu_torch.cli readc --jobs-name JOBS --folder DB [...]
+    python -m kmer_id_tpu_torch.cli pack-db PROBES OUT_DIR --num-targ N
+    python -m kmer_id_tpu_torch.cli report-b10 RESULT_DIR REFKEY OUT_CSV [--no-default-excludes]
+    python -m kmer_id_tpu_torch.cli report-c3 RESULT_DIR REFKEY OUT_CSV
 
-Each subcommand takes the flags of its namesake in ``kmer_id_tpu.cli``
-that the port supports (``--batch-size --max-len --cache-dir --engine``;
-not the mesh, multi-host or ``--profile`` flags) and writes the same files.
-``--device`` defaults to ``cuda`` and fails when no CUDA device is present.
+Each subcommand takes the flags of its namesake in ``kmer_id_tpu.cli`` and
+writes the same files.  The classify subcommands take ``--batch-size
+--max-len --cache-dir --engine {fp,legacy} --profile DIR`` (a
+``torch.profiler`` trace of classify-nx, classify-jobs and classify-m3,
+written as Chrome trace JSON into DIR) and ``--device``, which defaults to
+``cuda`` and fails when no CUDA device is present.  Not ported, and
+refused with ``NotImplementedError``: ``build-db``, a mesh of more than one
+device (``--mesh-data``/``--mesh-db`` > 1) and the multi-host flags
+(``--coordinator --num-processes --process-id``).
 """
 
 from __future__ import annotations
@@ -19,15 +27,25 @@ import os
 import sys
 
 from kmer_id_tpu_torch.config import ClassifyConfig
-from kmer_id_tpu_torch.utils.logging import set_verbosity
+from kmer_id_tpu_torch.utils.logging import log, set_verbosity
+from kmer_id_tpu_torch.utils.timing import profile_trace
+
+NOT_PORTED = "not yet ported to kmer_id_tpu_torch (ROADMAP.md §1)"
 
 
 def _add_engine_args(p):
+    p.add_argument("--mesh-data", type=int, default=1, help="data-parallel axis size (1 only)")
+    p.add_argument("--mesh-db", type=int, default=1, help="DB shard axis size (1 only)")
     p.add_argument("--batch-size", type=int, default=2048)
     p.add_argument("--max-len", type=int, default=512)
     p.add_argument("--cache-dir", default=None, help="packed-DB artifact cache dir")
     p.add_argument("--engine", choices=("fp", "legacy"), default="fp",
-                   help="fp = fingerprint engine; legacy is not ported yet")
+                   help="fp = fingerprint engine; legacy = cuckoo-table engine")
+    p.add_argument("--coordinator", default=None, help="multi-host runs: not ported")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the run to DIR")
     p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:N, cpu)")
 
 
@@ -49,7 +67,8 @@ def _run_jobs(name: str, jobs_name: str, args):
     )
     cfg = _preset("vf6", args, save_target=args.target)
     clf = make_classifier(db, cfg, cache_dir=args.cache_dir, device=args.device)
-    run_vf6(name, jobs_name, db, cfg, root=args.root, clf=clf)
+    with profile_trace(args.profile if args.cmd == "classify-jobs" else None):
+        run_vf6(name, jobs_name, db, cfg, root=args.root, clf=clf)
     return wdir
 
 
@@ -57,6 +76,15 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="kmer_id_tpu_torch")
     ap.add_argument("-v", "--verbose", action="count", default=1)
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    b = sub.add_parser("build-db", help="3-pass probe DB construction (not ported)")
+    b.add_argument("-name", required=True)
+    b.add_argument("-fadir", default="")
+    b.add_argument("-outdir", default="")
+    b.add_argument("--root", default=".")
+    b.add_argument("--spill", action="store_true")
+    b.add_argument("--spill-shard-bits", type=int, default=6)
+    b.add_argument("--spill-batch-mb", type=int, default=1024)
 
     nx = sub.add_parser("classify-nx", help="batch-classify paired samples in a dir")
     nx.add_argument("fastq_dir")
@@ -81,6 +109,17 @@ def main(argv=None):
     vj.add_argument("--root", default=".")
     _add_engine_args(vj)
 
+    rb = sub.add_parser("report-b10", help="readbatch_10-compatible rollup")
+    rb.add_argument("result_dir")
+    rb.add_argument("refkey")
+    rb.add_argument("out_csv")
+    rb.add_argument("--no-default-excludes", action="store_true")
+
+    rc3 = sub.add_parser("report-c3", help="readbatch_c3-compatible rollup")
+    rc3.add_argument("result_dir")
+    rc3.add_argument("refkey")
+    rc3.add_argument("out_csv")
+
     m3 = sub.add_parser("classify-m3", help="single-sample mitochondrial run")
     m3.add_argument("-wdir", required=True)
     m3.add_argument("-f1", required=True)
@@ -103,8 +142,42 @@ def main(argv=None):
     rd.add_argument("--root", default=".")
     _add_engine_args(rd)
 
+    pk = sub.add_parser("pack-db", help="probes text -> packed mmap artifact")
+    pk.add_argument("probes")
+    pk.add_argument("out_dir")
+    pk.add_argument("--num-targ", type=int, required=True)
+
     args = ap.parse_args(argv)
     set_verbosity(args.verbose)
+
+    if args.cmd == "build-db":
+        raise NotImplementedError(f"build-db: {NOT_PORTED}")
+    if getattr(args, "mesh_data", 1) * getattr(args, "mesh_db", 1) > 1:
+        raise NotImplementedError(f"a mesh of more than one device: {NOT_PORTED}")
+    if any(getattr(args, k, None) is not None
+           for k in ("coordinator", "num_processes", "process_id")):
+        raise NotImplementedError(f"multi-host runs: {NOT_PORTED}")
+
+    if args.cmd == "pack-db":
+        from kmer_id_tpu_torch.db.probes import pack_probes, parse_probes_text, save_packed
+
+        packed = pack_probes(parse_probes_text(args.probes), num_targ=args.num_targ)
+        save_packed(packed, args.out_dir)
+        log(f"packed {len(packed)} unique keys -> {args.out_dir}")
+        return 0
+
+    if args.cmd == "report-b10":
+        from kmer_id_tpu_torch.report.rollup import readbatch_10
+
+        readbatch_10(args.result_dir, args.refkey, args.out_csv,
+                     exclude=set() if args.no_default_excludes else None)
+        return 0
+
+    if args.cmd == "report-c3":
+        from kmer_id_tpu_torch.report.rollup import readbatch_c3
+
+        readbatch_c3(args.result_dir, args.refkey, args.out_csv)
+        return 0
 
     if args.cmd == "classify-nx":
         from kmer_id_tpu_torch.engine.pipeline import load_db, make_classifier, run_nx
@@ -119,9 +192,10 @@ def main(argv=None):
             cache_dir=args.cache_dir,
         )
         clf = make_classifier(db, cfg, cache_dir=args.cache_dir, device=args.device)
-        run_nx(args.fastq_dir, db, cfg, e1=args.e1, e2=args.e2,
-               fasta_mode=args.fasta, resume=args.resume, clf=clf,
-               metrics_path=args.metrics)
+        with profile_trace(args.profile):
+            run_nx(args.fastq_dir, db, cfg, e1=args.e1, e2=args.e2,
+                   fasta_mode=args.fasta, resume=args.resume, clf=clf,
+                   metrics_path=args.metrics)
         return 0
 
     if args.cmd == "classify-jobs":
@@ -133,7 +207,8 @@ def main(argv=None):
 
         cfg = _preset("m3", args)
         if args.cmd == "classify-m3":
-            run_m3(args.wdir, args.f1, args.f2, cfg=cfg, device=args.device)
+            with profile_trace(args.profile):
+                run_m3(args.wdir, args.f1, args.f2, cfg=cfg, device=args.device)
             return 0
         from kmer_id_tpu_torch.report.rollup import m3_report
 

@@ -13,8 +13,11 @@
 //
 // A second entry point, extract mode, writes the full (hi, lo, valid)
 // planes [B, P] instead (no Bloom test, no compaction) for the callers that
-// probe every window: the dense path, the overflow replay and a DB without
-// a Bloom filter.
+// probe every window: the dense path, the overflow replay, a DB without a
+// Bloom filter and the legacy engine.  On request (a non-null pointer) it
+// also writes fstrand [B, P]: the forward key strictly below the reverse
+// complement, which the legacy engine's verify replay reads (a 30-mer can
+// be its own reverse complement, so the canonical key cannot give it).
 //
 // What bounds it on the H100: bytes.  At classify-nx shapes (8192 rows of
 // 160 bases, P = 131 windows) the valid windows each read one 16-byte
@@ -72,6 +75,7 @@ struct Params {
   int32_t* hi;             // extract mode outputs: [rows, P]
   int32_t* lo;
   uint8_t* valid;
+  uint8_t* fstrand;        // or null: not written
   int rows, len, n_words, n_exc, k;
   int nw, nbw;             // shared words per row: codes, bad-base mask
   uint32_t nblk_mask, s4, s5;
@@ -143,11 +147,12 @@ __device__ void stage_rows(const Params& p, uint32_t* words, uint32_t* bad) {
   __syncthreads();
 }
 
-// Canonical key words and validity of window s of a staged row.
+// Canonical key words, validity and strand (forward key < reverse
+// complement) of window s of a staged row.
 __device__ __forceinline__ void window_key(const uint32_t* words,
                                            const uint32_t* bad, int s,
                                            uint32_t& hi, uint32_t& lo,
-                                           bool& ok) {
+                                           bool& ok, bool& fwd) {
   const int w = s >> 4;
   const int sh = 2 * (s & 15);
   const uint32_t a = __funnelshift_r(words[w], words[w + 1], sh);
@@ -156,7 +161,8 @@ __device__ __forceinline__ void window_key(const uint32_t* words,
   const uint64_t rc = ~win & kM60;
   uint64_t fw = __brevll(win) >> 4;
   fw = ((fw >> 1) & kOdd) | ((fw & kOdd) << 1);
-  const uint64_t key = fw < rc ? fw : rc;
+  fwd = fw < rc;
+  const uint64_t key = fwd ? fw : rc;
   hi = static_cast<uint32_t>(key >> 32);
   lo = static_cast<uint32_t>(key);
   const int m = s >> 5;
@@ -201,9 +207,9 @@ window_gate_kernel(const Params p) {
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int s = c0 + 32 * u + lane;
-      bool ok = false;
+      bool ok = false, fwd;
       khi[u] = klo[u] = 0;
-      if (s < n_win) window_key(words, bad, s, khi[u], klo[u], ok);
+      if (s < n_win) window_key(words, bad, s, khi[u], klo[u], ok, fwd);
       pass[u] = ok && bloom_test(p, khi[u], klo[u]);
     }
 #pragma unroll
@@ -244,11 +250,12 @@ window_extract_kernel(const Params p) {
   const size_t out0 = static_cast<size_t>(row) * n_win;
   for (int s = lane; s < n_win; s += 32) {
     uint32_t hi, lo;
-    bool ok;
-    window_key(words, bad, s, hi, lo, ok);
+    bool ok, fwd;
+    window_key(words, bad, s, hi, lo, ok, fwd);
     p.hi[out0 + s] = static_cast<int32_t>(hi);
     p.lo[out0 + s] = static_cast<int32_t>(lo);
     p.valid[out0 + s] = ok ? 1 : 0;
+    if (p.fstrand != nullptr) p.fstrand[out0 + s] = fwd ? 1 : 0;
   }
 }
 
@@ -310,13 +317,14 @@ extern "C" int kmer_window_gate(const uint32_t* packed, int n_words,
   return launch(p, true, stream);
 }
 
-// Extract mode: the full (hi, lo, valid) planes [rows, len - 29].
+// Extract mode: the full (hi, lo, valid) planes [rows, len - 29], and
+// fstrand of the same shape unless it is null.
 extern "C" int kmer_window_extract(const uint32_t* packed, int n_words,
                                    const int32_t* exc, int n_exc,
                                    const uint8_t* codes,
                                    const int32_t* lengths, int rows, int len,
                                    int32_t* hi, int32_t* lo, uint8_t* valid,
-                                   void* stream) {
+                                   uint8_t* fstrand, void* stream) {
   Params p = {};
   p.packed = packed;
   p.n_words = n_words;
@@ -329,5 +337,6 @@ extern "C" int kmer_window_extract(const uint32_t* packed, int n_words,
   p.hi = hi;
   p.lo = lo;
   p.valid = valid;
+  p.fstrand = fstrand;
   return launch(p, false, stream);
 }

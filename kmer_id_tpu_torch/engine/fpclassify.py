@@ -285,19 +285,7 @@ class FpClassifier:
         return torch.zeros(self.fpdb.n_slots + 1, dtype=torch.int8, device=self.device)
 
     def _reads(self, batch: Batch) -> ReadPlanes:
-        """The batch's rows on the device: its packed words and exception
-        list when it has them (the rows' width is the code plane's, or
-        ``max_len`` for a batch that ships none), else its code plane."""
-        dev = self.device
-        lengths = torch.from_numpy(np.ascontiguousarray(batch.lengths, np.int32)).to(dev)
-        if batch.packed is not None:
-            l = batch.codes.shape[1] if batch.codes is not None else self.max_len
-            return ReadPlanes(
-                lengths, l, packed=u32_tensor(batch.packed, dev),
-                exc=torch.from_numpy(np.ascontiguousarray(batch.exc, np.int32)).to(dev),
-            )
-        codes = torch.from_numpy(np.ascontiguousarray(batch.codes, np.uint8)).to(dev)
-        return ReadPlanes(lengths, codes.shape[1], codes=codes)
+        return ReadPlanes.from_batch(batch, self.device, self.max_len)
 
     def submit_batch(self, seen, batch: Batch):
         finals = fp_finals(self._db, self._reads(batch), seen, self.max_hits)

@@ -16,8 +16,8 @@ import numpy as np
 class PendingBatch:
     """In-flight device work for one batch."""
 
-    packed: object  # device int32 [B] finals
-    codes: object  # the Batch, kept for the overflow replay
+    packed: object  # device int32: [B] finals, or the legacy engine's summary
+    codes: object  # the rows (Batch, or legacy ReadPlanes) for the overflow replay
     lengths: object
     n_rows: int
 

@@ -4,10 +4,8 @@ Port of ``load_db``, ``make_classifier``, ``SampleProcessor``,
 ``write_result``, ``run_nx``, ``load_jobs``, ``run_vf6`` and ``run_m3`` from
 ``kmer_id_tpu/engine/pipeline.py`` (which imports jax, so nothing of it is
 imported here).  Batches and long reads are classified and accounted in
-read order on the calling thread.
-
-Not ported yet, and refused with ``NotImplementedError`` rather than routed
-elsewhere: ``minalign > 0`` and ``--engine legacy`` (ROADMAP.md §1 item 10).
+read order on the calling thread.  Under ``minalign > 0`` each batch is
+replayed read by read against the live ``gcount`` (engine/verify.py).
 """
 
 from __future__ import annotations
@@ -31,16 +29,11 @@ from kmer_id_tpu_torch.db.probes import (
     parse_probes_text,
     save_packed,
 )
-from kmer_id_tpu_torch.io.batch import LongRead, ReadBatcher
+from kmer_id_tpu_torch.io.batch import Batch, LongRead, ReadBatcher
 from kmer_id_tpu_torch.utils.logging import log
 from kmer_id_tpu_torch.utils.timing import StageTimers
+from kmer_id_tpu_torch.engine.classify import Classifier
 from kmer_id_tpu_torch.engine.fpclassify import FpClassifier
-
-LEGACY = "the legacy engine and minalign > 0 (ROADMAP.md §1 item 10)"
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"not yet ported to kmer_id_tpu_torch: {what}")
 
 
 @dataclass
@@ -100,13 +93,14 @@ def load_db(
 
 
 def make_classifier(db: LoadedDB, cfg: ClassifyConfig, cache_dir: str | None = None,
-                    device="cuda") -> FpClassifier:
-    """The fingerprint engine on ``device``, with its tables read from (or
-    written to) ``cache_dir``."""
+                    device="cuda"):
+    """The engine on ``device``, chosen as the JAX package chooses it: the
+    legacy engine (engine/classify.py) for ``engine == "legacy"`` and for
+    ``minalign > 0`` (the verify replay reads its per-window detail), else
+    the fingerprint engine with its tables read from (or written to)
+    ``cache_dir``, and the legacy engine where that one refuses the DB."""
     if cfg.minalign > 0 or cfg.engine != "fp":
-        raise _not_ported(LEGACY)
-    if len(db.packed) == 0:
-        raise _not_ported(f"an empty probe DB, which needs {LEGACY}")
+        return Classifier(db.packed, db.taxonomy, cfg.batch_size, cfg.max_len, device=device)
     from kmer_id_tpu_torch.db.fpdb import build_fpdb, load_fpdb, save_fpdb
 
     fp = None
@@ -118,8 +112,11 @@ def make_classifier(db: LoadedDB, cfg: ClassifyConfig, cache_dir: str | None = N
         fp = build_fpdb(db.packed, db.taxonomy)
         if cache_dir:
             save_fpdb(fp, cache_dir)
-    return FpClassifier(db.packed, db.taxonomy, cfg.batch_size, cfg.max_len,
-                        fpdb=fp, device=device)
+    try:
+        return FpClassifier(db.packed, db.taxonomy, cfg.batch_size, cfg.max_len,
+                            fpdb=fp, device=device)
+    except ValueError:
+        return Classifier(db.packed, db.taxonomy, cfg.batch_size, cfg.max_len, device=device)
 
 
 @dataclass
@@ -140,11 +137,18 @@ class SampleProcessor:
     longer than ``max_len`` go through the engine's long-read lane and are
     accounted at their place in read order.  ``target_reads_out`` receives
     every read whose final is ``cfg.save_target`` (vf6 ``-target``).
+
+    Under ``cfg.minalign > 0`` (a legacy engine) the Python feed is forced:
+    the replay needs each read's untrimmed length and trim start, which only
+    the Python batcher's metadata carries.  Each short-read batch's
+    per-window detail is then replayed read by read on the host, aligning
+    hits against ``cfg.fadir``'s genomes while a target's live ``gcount`` is
+    below ``minalign``, and ucount comes from the replay.
     """
 
     def __init__(
         self,
-        clf: FpClassifier,
+        clf,
         cfg: ClassifyConfig,
         reads_out: Optional[TextIO] = None,
         target_reads_out: Optional[TextIO] = None,
@@ -152,8 +156,6 @@ class SampleProcessor:
     ):
         from kmer_id_tpu_torch.io.native_feed import NativePlaneFeeder, native_available
 
-        if cfg.minalign > 0:
-            raise _not_ported(LEGACY)
         self.clf = clf
         self.cfg = cfg
         self.reads_out = reads_out
@@ -162,6 +164,8 @@ class SampleProcessor:
         self.reads = 0
         self.seen = clf.new_seen()
         self.batcher = ReadBatcher(clf.batch_size, clf.max_len, u_is_t=cfg.u_is_t)
+        if cfg.minalign > 0:
+            use_native = False
         self.native = native_available() if use_native is None else use_native
         self._feeder = (
             NativePlaneFeeder(clf.batch_size, clf.max_len, cfg.u_is_t)
@@ -170,6 +174,16 @@ class SampleProcessor:
         )
         self.timers = StageTimers()
         self._t_start = time.monotonic()
+        self._verify = None
+        if cfg.minalign > 0:
+            from kmer_id_tpu_torch.engine.verify import AlignVerifier, GenomeCache
+
+            genomes = GenomeCache(cfg.fadir, cfg.accessions or [], u_is_t=cfg.u_is_t)
+            self._verify = {
+                "verifier": AlignVerifier(genomes, clf.packed_db, cfg.minalign),
+                "ucount": np.zeros(clf.num_targ, dtype=np.int64),
+                "kmer_seen": set(),
+            }
 
     def feed(self, records: Iterable) -> None:
         for acc, seq, qual in records:
@@ -203,8 +217,11 @@ class SampleProcessor:
                 self._classify_native(nb)
         for item in self.batcher.flush():
             self._consume(item)
-        with self.timers.stage("finalize"):
-            ucount = self.clf.ucount(self.seen)
+        if self._verify is not None:
+            ucount = self._verify["ucount"]
+        else:
+            with self.timers.stage("finalize"):
+                ucount = self.clf.ucount(self.seen)
         wall = time.monotonic() - self._t_start
         classified = int(self.reads - (self.gcount[0] if len(self.gcount) else 0))
         log(
@@ -221,7 +238,9 @@ class SampleProcessor:
 
     # ------------------------------------------------------------ internals
     def _consume(self, item) -> None:
-        if isinstance(item, LongRead):
+        if self._verify is not None and isinstance(item, Batch):
+            self._replay_verify(item)
+        elif isinstance(item, LongRead):
             self.seen, final = self.clf.process_long(self.seen, item)
             self._account(int(final), item.meta)
         else:
@@ -240,12 +259,35 @@ class SampleProcessor:
         metas = batch.metas
         long_items = [LongRead(meta=None, codes=metas.seq_codes(i, self.cfg.u_is_t))
                       for i in nb.long_rows]
-        self.seen, long_finals = self.clf.process_long_many(self.seen, long_items)
+        if hasattr(self.clf, "process_long_many"):
+            self.seen, long_finals = self.clf.process_long_many(self.seen, long_items)
+        else:  # the legacy engine: one read at a time
+            long_finals = []
+            for item in long_items:
+                self.seen, f = self.clf.process_long(self.seen, item)
+                long_finals.append(f)
         final = finals[: batch.n_rows].tolist()
         for i, f in zip(nb.long_rows, long_finals):
             final[i] = f
         for i, f in enumerate(final):
             self._account(int(f), None, metas, i)
+
+    def _replay_verify(self, batch: Batch) -> None:
+        """The exact ``minalign > 0`` replay of a batch (engine/verify.py),
+        read by read in read order."""
+        from kmer_id_tpu_torch.engine.verify import replay_read
+
+        v = self._verify
+        self.seen, detail, keys = self.clf.detail_batch(self.seen, batch)
+        for i in range(batch.n_rows):
+            meta = batch.metas[i]
+            full_len = meta.full_len if meta.full_len >= 0 else len(meta.trimmed_seq)
+            final = replay_read(
+                self.clf.taxonomy, self.clf.packed_db, detail[i], meta.trimmed_seq,
+                full_len, v["verifier"], self.gcount, v["ucount"], v["kmer_seen"], keys[i],
+                trim_start=meta.trim_start,
+            )
+            self._account(final, meta)
 
     def _account_batch(self, finals: np.ndarray, metas) -> None:
         """Vectorized per-batch accounting, equal to :meth:`_account` row by
@@ -324,7 +366,7 @@ def run_nx(
     e2: str = "_R2_tr.fastq.gz",
     fasta_mode: bool = False,
     resume: bool = False,
-    clf: FpClassifier | None = None,
+    clf=None,
     metrics_path: str | None = None,
     device="cuda",
 ) -> list[str]:
@@ -409,7 +451,7 @@ def run_vf6(
     db: LoadedDB,
     cfg: ClassifyConfig | None = None,
     root: str = ".",
-    clf: FpClassifier | None = None,
+    clf=None,
     device="cuda",
 ) -> list[str]:
     """Job-based classification (vf6 driver, ``kmer_read_vf6.cpp:966-1172``):

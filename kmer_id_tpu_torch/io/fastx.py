@@ -24,8 +24,8 @@ Gates that decide whether a record reaches the classifier (trim keep, FASTA
 length > KSIZE) belong to the engine, matching where the reference applies
 them.
 
-Copy of ``kmer_id_tpu/io/fastx.py``'s read parsers (its genome loaders feed
-the DB builder, which the port does not have).
+Copy of ``kmer_id_tpu/io/fastx.py``: the read parsers, and the genome
+loaders that the verify replay reads genomes with (engine/verify.py).
 """
 
 from __future__ import annotations
@@ -122,3 +122,61 @@ def iter_fasta_plain(path) -> Iterator[Record]:
     seq = "".join(seq_parts)
     if len(seq) > KSIZE:
         yield acc, seq, None
+
+
+# ----------------------------------------------------------- genome loaders
+
+
+def load_genome_gz(path, u_is_t: bool = False) -> str:
+    """Concatenated genome string with 'N' contig separators.
+
+    Mirrors the reference DB build's ``process_gz``
+    (``kmer_build_vf6.cpp:305-351``):
+    each ``>`` header contributes an ``N``; lowercase normalized; non-ACGT(U)
+    become ``N``.
+    """
+    return _concat_genome(_lines(path, gz=True), u_is_t=u_is_t)
+
+
+def load_genome_contigs(path, u_is_t: bool = False) -> str:
+    """Plain-text contigs loader, mirroring ``load_data2``
+    (``kmer_build_vf6.cpp:263-295``): strips all whitespace and skips lines
+    of length <= 1 (a single-character line is dropped entirely)."""
+    def lines():
+        for line in _lines(path, gz=False):
+            line = "".join(line.split())
+            if len(line) > 1:
+                yield line
+
+    return _concat_genome(lines(), u_is_t=u_is_t)
+
+
+def _norm_table(u_is_t: bool) -> bytes:
+    tbl = bytearray(b"N" * 256)
+    for c in b"ACGT":
+        tbl[c] = c
+        tbl[c + 32] = c  # lowercase
+    if u_is_t:
+        tbl[ord("U")] = ord("T")
+        tbl[ord("u")] = ord("T")
+    return bytes(tbl)
+
+
+_NORM_TBL = _norm_table(False)
+_NORM_TBL_U = _norm_table(True)
+
+
+def _concat_genome(lines, u_is_t: bool) -> str:
+    # bytes.translate normalizes at C speed (the per-character python dict
+    # walk was the hotspot of the DB build's passes 1 and 3 on
+    # multi-k-genome rebuilds)
+    tbl = _NORM_TBL_U if u_is_t else _NORM_TBL
+    out: list[str] = []
+    for line in lines:
+        if not line:
+            continue
+        if line[0] == ">":
+            out.append("N")
+        else:
+            out.append(line.encode("latin-1", "replace").translate(tbl).decode("latin-1"))
+    return "".join(out)

@@ -11,7 +11,8 @@ long-read lane), in two modes:
   which may exceed K (the engine's dense branch reads it).
 * **extract** — the full ``{"hi", "lo", "valid"}`` planes [B, P] for the
   callers that probe every window (the dense path, the overflow replay, a
-  DB without a Bloom filter).
+  DB without a Bloom filter, the legacy engine), with ``fstrand`` [B, P]
+  (forward key strictly below the reverse complement) on request.
 
 Each has a plain PyTorch version (:func:`window_gate_plain`,
 :func:`extract_plain`: the composition of ops/extract.py's unpack and
@@ -26,6 +27,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from kmer_id_tpu_torch.core.codec import KSIZE
@@ -33,6 +35,7 @@ from kmer_id_tpu_torch.kernels.build import check_tensor, launch, load_gate, ptr
 from kmer_id_tpu_torch.ops.compact import compact_ranks_plain
 from kmer_id_tpu_torch.ops.extract import extract_kmers, unpack_codes
 from kmer_id_tpu_torch.ops.lookup import bloom_pass
+from kmer_id_tpu_torch.ops.words import u32_tensor
 
 BLOOM_K = 12  # per-read budget of Bloom-passing windows
 
@@ -51,6 +54,20 @@ class ReadPlanes:
     exc: torch.Tensor | None = None
     codes: torch.Tensor | None = None
 
+    @classmethod
+    def from_batch(cls, batch, device, max_len: int) -> "ReadPlanes":
+        """An io/batch.Batch's rows on ``device``: its packed words and
+        exception list when it has them (the rows' width is the code
+        plane's, or ``max_len`` for a batch that ships none), else its code
+        plane."""
+        lengths = torch.from_numpy(np.ascontiguousarray(batch.lengths, np.int32)).to(device)
+        if batch.packed is not None:
+            width = batch.codes.shape[1] if batch.codes is not None else max_len
+            return cls(lengths, width, packed=u32_tensor(batch.packed, device),
+                       exc=torch.from_numpy(np.ascontiguousarray(batch.exc, np.int32)).to(device))
+        codes = torch.from_numpy(np.ascontiguousarray(batch.codes, np.uint8)).to(device)
+        return cls(lengths, codes.shape[1], codes=codes)
+
     @property
     def rows(self) -> int:
         return self.lengths.shape[0]
@@ -66,10 +83,11 @@ def _code_plane(reads: ReadPlanes) -> torch.Tensor:
     return reads.codes
 
 
-def extract_plain(reads: ReadPlanes) -> dict:
+def extract_plain(reads: ReadPlanes, fstrand: bool = False) -> dict:
     """Extract mode in plain PyTorch: unpack, then extract_kmers."""
     ex = extract_kmers(_code_plane(reads), reads.lengths)
-    return {"hi": ex["hi"], "lo": ex["lo"], "valid": ex["valid"]}
+    keep = ("hi", "lo", "valid", "fstrand") if fstrand else ("hi", "lo", "valid")
+    return {k: ex[k] for k in keep}
 
 
 def window_gate_plain(db, reads: ReadPlanes):
@@ -139,20 +157,23 @@ def window_gate_cuda(db, reads: ReadPlanes):
 window_gate_cuda.launches = 0
 
 
-def extract_cuda(reads: ReadPlanes) -> dict:
-    """Extract mode by the CUDA kernel ``csrc/gate.cu``.  Raises as
-    :func:`window_gate_cuda` does; ``extract_cuda.launches`` counts
-    launches."""
+def extract_cuda(reads: ReadPlanes, fstrand: bool = False) -> dict:
+    """Extract mode by the CUDA kernel ``csrc/gate.cu`` (the ``fstrand``
+    plane only when asked for).  Raises as :func:`window_gate_cuda` does;
+    ``extract_cuda.launches`` counts launches."""
     lead = _kernel_args(reads, "extract_cuda")
     dev = reads.device
     shape = (reads.rows, reads.width - KSIZE + 1)
-    hi, lo = (torch.empty(shape, dtype=torch.int32, device=dev) for _ in range(2))
-    valid = torch.empty(shape, dtype=torch.bool, device=dev)
+    out = {k: torch.empty(shape, dtype=torch.int32, device=dev) for k in ("hi", "lo")}
+    out["valid"] = torch.empty(shape, dtype=torch.bool, device=dev)
+    if fstrand:
+        out["fstrand"] = torch.empty(shape, dtype=torch.bool, device=dev)
     lib = load_gate()
     launch(lib.kmer_window_extract, "window_extract", dev, *lead,
-            ptr(hi), ptr(lo), ptr(valid))
+           ptr(out["hi"]), ptr(out["lo"]), ptr(out["valid"]),
+           ptr(out["fstrand"]) if fstrand else None)
     extract_cuda.launches += 1
-    return {"hi": hi, "lo": lo, "valid": valid}
+    return out
 
 
 extract_cuda.launches = 0
@@ -166,8 +187,8 @@ def window_gate(db, reads: ReadPlanes):
     return window_gate_plain(db, reads)
 
 
-def extract(reads: ReadPlanes) -> dict:
+def extract(reads: ReadPlanes, fstrand: bool = False) -> dict:
     """Engine entry of extract mode (see :func:`window_gate`)."""
     if reads.device.type == "cuda":
-        return extract_cuda(reads)
-    return extract_plain(reads)
+        return extract_cuda(reads, fstrand)
+    return extract_plain(reads, fstrand)

@@ -1,9 +1,12 @@
 """Report rollups with bit-identical CSV formatting.
 
-Reimplements the reference report scripts' arithmetic and string formatting
-exactly (same float operations in the same order, same ``str()`` rendering),
-so outputs diff clean against the originals:
+Reimplements the four reference report scripts' arithmetic and string
+formatting exactly (same float operations in the same order, same ``str()``
+rendering), so outputs diff clean against the originals:
 
+* :func:`readbatch_10`  ⇔ ``readbatch_10.py``  (bact10 directory rollup)
+* :func:`readbatch_c3`  ⇔ ``readbatch_c3.py``  (chloroplast rollup, 7-col
+  refkey with coverage factors)
 * :func:`m3_report`     ⇔ the report half of ``kmer_read_m3.py`` (Galaxy
   mitokmer single-sample CSV)
 * :func:`readc_report`  ⇔ the report half of ``kmer_readc.py`` (job rollup)
@@ -14,14 +17,20 @@ filter is applied here either; the shipped CRLF ``mitochondria_refkey.txt``
 makes ``nstrains`` parse as ``"0\\r"`` and the reference divides by zero —
 faithful by default, with ``strip_cr=True`` as the usable escape hatch.
 
-Copy of ``kmer_id_tpu/report/rollup.py``: the two rollups the port's
-``mitokmer`` and ``readc`` write (the directory rollups ``readbatch_10`` and
-``readbatch_c3`` are the JAX CLI's ``report-*`` commands, not ported).
+Copy of ``kmer_id_tpu/report/rollup.py``.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Sequence
+
+# Default exclusion sets, readbatch_10.py:14-21.
+DEFAULT_EXCLUDE_I = {
+    4178, 1744, 2539, 5624, 1575, 5647, 323, 2728, 268, 5317, 297, 3867,
+    314, 1344, 2947, 2935, 4213, 4976, 2767, 2763, 118, 3390, 1757,
+}
+DEFAULT_EXCLUDE_S = set(range(1928, 2339))
 
 
 def _read_lines(path: str, keep_cr: bool = False) -> list[str]:
@@ -35,6 +44,101 @@ def _read_lines(path: str, keep_cr: bool = False) -> list[str]:
     with open(path, "r", newline="" if keep_cr else None) as f:
         data = f.read()
     return data.split("\n")
+
+
+def readbatch_10(
+    result_dir: str,
+    refkey_path: str,
+    out_path: str,
+    mincount: float = 2.0,
+    minuniq: float = 3.0,
+    maxrat: float = 80000.0,
+    exclude: set[int] | None = None,
+    ext1: str = "_result.txt",
+) -> None:
+    """bact10 rollup (``readbatch_10.py``): counts + %-abundance CSV."""
+    exclude_b = (
+        (DEFAULT_EXCLUDE_I | DEFAULT_EXCLUDE_S) if exclude is None else exclude
+    )
+    count_list: list[float] = []
+    name_list: list[str] = []
+    in_use: list[int] = []
+    lines = _read_lines(refkey_path)
+    lines.pop(0)  # header
+    for line in lines:
+        if len(line) > 1:
+            target, name, count, use = line.split("\t")
+            if int(target) in exclude_b:
+                use = "0"
+            in_use.append(int(use))
+            if use == "1":
+                count_list.append(float(count) + 10.0)  # readbatch_10.py:42
+                name_list.append(name)
+    num_targs = len(name_list)
+
+    resultfiles = [
+        f
+        for f in os.listdir(result_dir)
+        if os.path.isfile(os.path.join(result_dir, f)) and f.endswith(ext1)
+    ]
+    num_cols = len(resultfiles)
+    noid_list: list[int] = []
+    read_ct: list[float] = []
+    file_list: list[str] = []
+    m = [[0 for _ in range(num_cols)] for _ in range(num_targs)]
+    col = 0
+    for f in resultfiles:
+        fname = os.path.join(result_dir, f)
+        pos = f.find(ext1)
+        if pos > -1:
+            f = f[:pos]
+        file_list.append(f)
+        read_ct.append(0.0)
+        index = 0
+        for line in _read_lines(fname):
+            if len(line) > 1:
+                row = line.split(",")
+                target = int(row[0])
+                count = float(row[1])
+                uniq = float(row[2]) if len(row) > 2 else count
+                count2 = count
+                if count2 < mincount or uniq < minuniq or (count2 / uniq > maxrat):
+                    count2 = 0.0
+                read_ct[col] += count
+                if target > 0:
+                    if in_use[target] == 1:
+                        m[index][col] = count2
+                        index += 1
+                else:
+                    noid_list.append(int(count))
+        col += 1
+
+    rowmax = [0 for _ in range(num_targs)]
+    b = [[0 for _ in range(num_cols)] for _ in range(num_targs)]
+    sums = [0 for _ in range(num_cols)]
+    for col in range(num_cols):
+        sums[col] = 0
+        for row in range(num_targs):
+            b[row][col] = m[row][col] / count_list[row]
+            sums[col] += b[row][col]
+        if sums[col] < 0.00000009:
+            sums[col] = 0.0000001
+        for row in range(num_targs):
+            b[row][col] = b[row][col] * 100.0 / sums[col]
+            rowmax[row] = max(rowmax[row], b[row][col])
+
+    order_col = sorted(range(num_cols), key=lambda k: file_list[k])
+    with open(out_path, "w") as out:
+        out.write("name," + "".join(file_list[order_col[i]] + ",," for i in range(num_cols)) + "\n")
+        out.write("total," + "".join(str(read_ct[order_col[i]]) + ",," for i in range(num_cols)) + "\n")
+        out.write("no_id," + "".join(str(noid_list[order_col[i]]) + ",," for i in range(num_cols)) + "\n")
+        for i in range(num_targs):
+            if rowmax[i] > 0.000:
+                output = name_list[i]
+                for j in range(num_cols):
+                    k = order_col[j]
+                    output += "," + str(m[i][k]) + "," + str(b[i][k])
+                out.write(output + "\n")
 
 
 def _parse_7col_refkey(lines, mincount_filter: bool, min_ranks: int, exclude_b):
@@ -119,6 +223,84 @@ def m3_report(
                     name_list[i] + "," + "{0:.0f}".format(m[i]) + ","
                     + "{0:.3f}".format(b[i]) + "\n"
                 )
+
+
+def readbatch_c3(
+    result_dir: str,
+    refkey_path: str,
+    out_path: str,
+    mincount: float = 2.0,
+    minuniq: float = 2.0,
+    maxrat: float = 80.0,
+    exclude: set[int] | None = None,
+) -> None:
+    """Chloroplast rollup (``readbatch_c3.py``), numpy arithmetic preserved."""
+    import numpy as np
+
+    lines = _read_lines(refkey_path)
+    lines.pop(0)
+    factor_list, name_list, in_use = _parse_7col_refkey(
+        lines, mincount_filter=True, min_ranks=6, exclude_b=exclude or set()
+    )
+    factor_arr = np.array(factor_list)
+    num_targs = len(name_list)
+
+    onlyfiles = [
+        f
+        for f in os.listdir(result_dir)
+        if os.path.isfile(os.path.join(result_dir, f)) and f[-11:] == "_result.txt"
+    ]
+    num_cols = len(onlyfiles)
+    noid_list: list[int] = []
+    read_ct: list[float] = []
+    file_list: list[str] = []
+    m = np.zeros((num_targs, num_cols))
+    u = np.zeros((num_targs, num_cols))
+    col = 0
+    for f in onlyfiles:
+        fname = result_dir + "/" + f
+        file_list.append(f[:-11])
+        read_ct.append(0.0)
+        index = 0
+        for line in _read_lines(fname):
+            if len(line) > 1:
+                row = line.split(",")
+                target = int(row[0])
+                count = float(row[1])
+                uniq = float(row[2])
+                count2 = count
+                if count2 < mincount or uniq < minuniq or (count2 / uniq > maxrat):
+                    count2 = 0.0
+                read_ct[col] += float(count)
+                if target > 0:
+                    if in_use[target] == 1:
+                        m[index, col] = float(count2)
+                        u[index, col] = uniq
+                        index += 1
+                else:
+                    noid_list.append(int(count))
+        col += 1
+
+    b = m * factor_arr[:, None]
+    sums = np.sum(b, axis=0)
+    for col in range(num_cols):
+        if sums[col] < 0.00000009:
+            sums[col] = 0.0000001
+    b = b / sums[None, :]
+    b = b * 100.0
+    order_col = sorted(range(num_cols), key=lambda k: file_list[k])
+    rowmax = b.max(axis=1) if num_cols else np.zeros(num_targs)
+    with open(out_path, "w") as out:
+        out.write("name," + "".join(file_list[order_col[i]] + ",," for i in range(num_cols)) + "\n")
+        out.write("total," + "".join(str(read_ct[order_col[i]]) + ",," for i in range(num_cols)) + "\n")
+        out.write("no_id," + "".join(str(noid_list[order_col[i]]) + ",," for i in range(num_cols)) + "\n")
+        for i in range(num_targs):
+            if rowmax[i] > 0.000:
+                output = name_list[i]
+                for j in range(num_cols):
+                    k = order_col[j]
+                    output += "," + str(m[i, k]) + "," + str(b[i, k])
+                out.write(output + "\n")
 
 
 def readc_report(

@@ -7,8 +7,9 @@ a machine that has only PyTorch (skip tests/conftest.py, which imports
 jax): ``pytest --noconftest -m cuda tests/test_torch_compact_cuda.py``.
 Shapes are classify-nx's (batch 8192, max_len 160: Bloom gate, both verify
 tiers, dense path), the long-read lane's (2048 chunk rows of max_len 512:
-Bloom gate, verify tier, dense path, all at the lane's budgets) and a budget
-wider than a warp; values are integers, equality exact.
+Bloom gate, verify tier, dense path, all at the lane's budgets), the legacy
+engine's hit lists (every window of an nx batch or of a jobs/m3 short batch
+to 32) and a budget wider than a warp; values are integers, equality exact.
 """
 
 import numpy as np
@@ -27,7 +28,7 @@ from kmer_id_tpu_torch.ops.compact import (
 @pytest.mark.parametrize("b,c,max_hits", [(8192, 131, 12), (8192, 36, 8),
                                           (8192, 36, 32), (8192, 393, 32),
                                           (2048, 483, 12), (2048, 36, 8), (2048, 1449, 8),
-                                          (5, 70, 40)])
+                                          (8192, 131, 32), (2048, 483, 32), (5, 70, 40)])
 def test_kernel_matches_plain_on_card(b, c, max_hits, density):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the card")

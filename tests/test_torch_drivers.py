@@ -3,9 +3,11 @@ package's, byte for byte: ``load_jobs``, ``run_vf6`` and ``run_m3``, the
 ``classify-jobs``, ``classify-m3``, ``mitokmer`` and ``readc`` subcommands
 of both CLIs, on jobs that mix FASTQ.gz short reads with FASTA contigs longer
 than ``--max-len`` (the long-read lane), with and without ``-target``, and
-with ``f2`` given or ``none``.  Also: the m3 driver's two exit gates, the
-repaired ``load_db`` (``require_tree``, ``kmers_loaded``), the Python and
-native feeds with long reads, and the rounding of ``run_nx``'s metrics.
+with ``f2`` given or ``none``, with the fingerprint engine and with
+``--engine legacy``; and the ``pack-db``, ``report-b10`` and ``report-c3``
+subcommands.  Also: the m3 driver's two exit gates, the repaired ``load_db``
+(``require_tree``, ``kmers_loaded``), the Python and native feeds with long
+reads, and the rounding of ``run_nx``'s metrics.
 """
 
 import gzip
@@ -390,3 +392,134 @@ def test_cuda_device_refused_without_cuda(world, cmd, tmp_path):
     }[cmd]
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main([cmd] + argv + ENGINE)
+
+
+LEGACY_CASES = ["classify-jobs", "classify-jobs-target", "classify-m3", "mitokmer", "readc"]
+
+
+@pytest.mark.parametrize("case", LEGACY_CASES)
+def test_legacy_engine_subcommands_match_jax(world, case, tmp_path):
+    """``--engine legacy`` on the five classify subcommands: the files of
+    the JAX CLI run with that flag (which on one device does not read it and
+    runs the fingerprint engine) and of the port's fingerprint engine, byte
+    for byte; for classify-jobs and classify-m3 also those of the JAX
+    drivers run with a legacy config (the JAX legacy engine)."""
+    from kmer_id_tpu import cli as jax_cli
+    from kmer_id_tpu_torch import cli
+
+    root, rd = world["root"], world["reads"]
+    runs = {}
+    for name, main, extra in (("jax", jax_cli.main, ["--engine", "legacy"]),
+                              ("torch", cli.main, ["--engine", "legacy", "--device", "cpu"]),
+                              ("fp", cli.main, ["--device", "cpu"])):
+        tag = f"{name}_{case}"
+        if case.startswith("classify-jobs") or case == "readc":
+            d = _jobs(world, tag, zero_file_job=case != "readc")
+            if case == "readc":
+                argv = ["readc", "--jobs-name", tag, "--folder", "db", "--root", str(root)]
+            else:
+                argv = ["classify-jobs", "-name", "db", "-jname", tag, "--root", str(root),
+                        "-target", str(TARGET if case.endswith("target") else 0)]
+            assert main(argv + ENGINE + extra) == 0
+            files = _files(d)
+            runs[name] = {k.replace(tag, "JOB"): v for k, v in files.items()}
+        else:
+            w = tmp_path / tag
+            shutil.copytree(root / "mito", w)
+            inputs = [str(rd / "contigs.fasta"), str(rd / "short.fastq")]
+            if case == "mitokmer":
+                argv = ["mitokmer", "-w", str(w), "-d", str(tmp_path / f"out_{tag}"), "-i"] + inputs
+            else:
+                argv = ["classify-m3", "-wdir", str(w), "-f1", inputs[0], "-f2", inputs[1]]
+            assert main(argv + ENGINE + extra) == 0
+            runs[name] = {"result.txt": (w / "result.txt").read_bytes()}
+            if case == "mitokmer":
+                runs[name]["csv"] = (tmp_path / f"out_{tag}" / "mitokmer_result.csv").read_bytes()
+    assert runs["torch"] == runs["jax"]
+    assert runs["torch"] == runs["fp"]
+    if case == "classify-jobs-target":
+        assert runs["torch"]["a_target_reads.txt"]
+    if case in ("classify-jobs", "classify-jobs-target", "classify-m3"):
+        assert runs["torch"] == _jax_legacy_api(world, case, tmp_path)
+
+
+def _jax_legacy_api(world, case, tmp_path):
+    """The files of the JAX package's drivers with ``engine="legacy"``."""
+    from kmer_id_tpu.engine import pipeline as JP
+
+    rd = world["reads"]
+    if case == "classify-m3":
+        w = tmp_path / "jax_api"
+        shutil.copytree(world["root"] / "mito", w)
+        cfg = JaxClassifyConfig.preset("m3", batch_size=32, max_len=128, engine="legacy")
+        JP.run_m3(str(w), str(rd / "contigs.fasta"), str(rd / "short.fastq"), cfg=cfg)
+        return {"result.txt": (w / "result.txt").read_bytes()}
+    tag = f"api_{case}"
+    d = _jobs(world, tag)
+    cfg = JaxClassifyConfig.preset("vf6", save_target=TARGET if case.endswith("target") else 0,
+                                   batch_size=32, max_len=128, engine="legacy")
+    db = JP.load_db(*[str(world["root"] / "db" / f"db_{n}")
+                      for n in ("data.txt", "tree.txt", "probes.txt.gz")])
+    clf = JP.make_classifier(db, cfg)
+    assert type(clf).__name__ == "Classifier"
+    JP.run_vf6("db", tag, db, cfg, root=str(world["root"]), clf=clf)
+    return {k.replace(tag, "JOB"): v for k, v in _files(d).items()}
+
+
+def test_pack_db_matches_jax(world, tmp_path):
+    """``pack-db``: the packed artifact (sorted keys, values, bucket index,
+    cuckoo table, manifest) byte for byte."""
+    from kmer_id_tpu import cli as jax_cli
+    from kmer_id_tpu_torch import cli
+
+    probes = str(world["root"] / "db" / "db_probes.txt.gz")
+    for name, main in (("jax", jax_cli.main), ("torch", cli.main)):
+        assert main(["pack-db", probes, str(tmp_path / name), "--num-targ", str(NUM_TARG)]) == 0
+    got, want = _files_all(tmp_path / "torch"), _files_all(tmp_path / "jax")
+    assert got == want and "cuckoo.npy" in got and "manifest.json" in got
+
+
+def _files_all(d):
+    return {p.name: p.read_bytes() for p in sorted(d.iterdir())}
+
+
+@pytest.fixture(scope="module")
+def result_dir(tmp_path_factory):
+    """Three samples' ``_result.txt`` files (random counts, a few below the
+    rollups' thresholds), a 4-column bact10 refkey and a 7-column refkey."""
+    r = np.random.default_rng(5)
+    d = tmp_path_factory.mktemp("results")
+    for sample in ("s2", "s1", "s3"):
+        g = r.integers(0, 400, size=NUM_TARG)
+        g[r.random(NUM_TARG) < 0.2] = 1
+        u = np.maximum(r.integers(0, 50, size=NUM_TARG), 1)
+        (d / f"{sample}_result.txt").write_text(
+            "".join(f"{t},{g[t]},{u[t]}\n" for t in range(NUM_TARG)))
+    (d / "notes.txt").write_text("not a result file\n")
+    key10 = d.parent / "refkey10.txt"
+    key10.write_text("target\tname\tcount\tuse\n" + "".join(
+        f"{t}\tname{t}\t{int(r.integers(5, 90))}\t{int(t % 4 != 3)}\n" for t in range(NUM_TARG)))
+    key7 = d.parent / "refkey7.txt"
+    key7.write_text("target\tname\tcount\thit\ttested\tgsize\tnstrains\n" + "".join(
+        f"{t}\tk_p_c_o_f_g_s{t}\t{t + 5}\t{20 + t}\t{100 + 3 * t}\t{1000 + t}\t1\n"
+        for t in range(NUM_TARG)))
+    return d, key10, key7
+
+
+@pytest.mark.parametrize("cmd,flags", [("report-b10", []),
+                                       ("report-b10", ["--no-default-excludes"]),
+                                       ("report-c3", [])])
+def test_report_subcommands_match_jax(result_dir, cmd, flags, tmp_path):
+    from kmer_id_tpu import cli as jax_cli
+    from kmer_id_tpu_torch import cli
+
+    d, key10, key7 = result_dir
+    key = key10 if cmd == "report-b10" else key7
+    out = {}
+    for name, main in (("jax", jax_cli.main), ("torch", cli.main)):
+        path = tmp_path / f"{name}.csv"
+        assert main([cmd, str(d), str(key), str(path)] + flags) == 0
+        out[name] = path.read_bytes()
+    assert out["torch"] == out["jax"]
+    lines = out["torch"].decode().splitlines()
+    assert lines[0] == "name,s1,,s2,,s3,," and len(lines) > 4

@@ -1,12 +1,14 @@
 """The window gate (kmer_id_tpu_torch/ops/gate.py) on the CPU.
 
-* ``window_gate_plain`` and ``extract_plain`` against the JAX chain they
-  replace: ``unpack_codes``, ``extract_kmers``, ``bloom_pass`` and
-  ``compact_ranks_pallas`` in interpret mode, bit for bit.
+* ``window_gate_plain`` and ``extract_plain`` (its ``fstrand`` plane too)
+  against the JAX chain they replace: ``unpack_codes``, ``extract_kmers``,
+  ``bloom_pass`` and ``compact_ranks_pallas`` in interpret mode, bit for
+  bit.
 * A numpy model of the CUDA kernel's own arithmetic (csrc/gate.cu: each
   window read from the packed words by shift, the reverse complement as
-  ``~W & (2^60 - 1)``, the forward key by reversing W's 2-bit groups, the
-  bad-base bitmask, the uint32 hash, ranks from a ballot per 32 windows)
+  ``~W & (2^60 - 1)``, the forward key by reversing W's 2-bit groups,
+  fstrand as forward < reverse complement, the bad-base bitmask, the uint32
+  hash, ranks from a ballot per 32 windows)
   against the plain versions, so the kernel's formulas are checked here.
 * The kernel itself against the plain versions, on the card only (marked
   ``cuda``; skips elsewhere).
@@ -14,8 +16,9 @@
 Inputs are made with numpy from a seed: both input forms (packed words with
 a shuffled exception list, and the code plane with invalid bytes 4, 5 and
 255), N runs, invalid bases at both ends of a read, reads shorter than
-KSIZE or as wide as the plane, and probe-dense reads (more than 12 windows
-passing the Bloom filter).
+KSIZE or as wide as the plane, probe-dense reads (more than 12 windows
+passing the Bloom filter) and palindromic 30-mers (fstrand False where the
+forward key is the canonical one).
 
 The JAX package is imported only inside the test that uses it, so the card
 test also runs where only PyTorch is installed (skip tests/conftest.py,
@@ -31,6 +34,7 @@ from kmer_id_tpu_torch.ops.compact import SENT
 from kmer_id_tpu_torch.ops.gate import (
     BLOOM_K,
     ReadPlanes,
+    _code_plane,
     extract,
     extract_cuda,
     extract_plain,
@@ -85,14 +89,14 @@ def _jax_chain(bloom, s4, s5, reads: ReadPlanes):
         jnp.broadcast_to(iota, (b, p)), bloomed, iota, BLOOM_K, interpret=True,
         extras=(ex["hi"], ex["lo"]))
     gate = tuple(np.asarray(x) for x in (wpos, whi, wlo, npass))
-    return gate, tuple(np.asarray(ex[k]) for k in ("hi", "lo", "valid"))
+    return gate, tuple(np.asarray(ex[k]) for k in ("hi", "lo", "valid", "fstrand"))
 
 
 def _as_numpy(gate, planes):
     g = tuple(x.numpy() for x in gate)
     return ((g[0], g[1].view(np.uint32), g[2].view(np.uint32), g[3]),
             (planes["hi"].numpy().view(np.uint32), planes["lo"].numpy().view(np.uint32),
-             planes["valid"].numpy()))
+             planes["valid"].numpy(), planes["fstrand"].numpy()))
 
 
 @pytest.mark.parametrize("form", ["packed", "codes"])
@@ -100,10 +104,13 @@ def _as_numpy(gate, planes):
 def test_plain_gate_matches_jax_chain(b, l, lens, form):
     bloom, s4, s5, _, _, forms = _world(b + l, b, l, lens)
     reads = forms[form]
-    got = _as_numpy(window_gate_plain(_tdb(bloom, s4, s5), reads), extract_plain(reads))
+    got = _as_numpy(window_gate_plain(_tdb(bloom, s4, s5), reads),
+                    extract_plain(reads, fstrand=True))
     want = _jax_chain(bloom, s4, s5, reads)
     for g, w in zip(got[0] + got[1], want[0] + want[1]):
         np.testing.assert_array_equal(g, w)
+    fstrand, pal = want[1][3], _palindromes(reads)
+    assert fstrand.any() and pal.any() and not fstrand[pal].any()
     npass = want[0][3]
     assert npass.max() > BLOOM_K and 0 < (npass > 0).sum() < b  # dense rows and passes
     assert (want[0][0][npass == 0] == SENT).all()
@@ -169,8 +176,18 @@ def _stage(reads: ReadPlanes):
     return words, bad
 
 
+def _palindromes(reads: ReadPlanes):
+    """[B, P] bool: the valid windows that are their own reverse
+    complement."""
+    c = _code_plane(reads).numpy().astype(np.int64) & 3
+    p = reads.width - 29
+    win = np.stack([c[:, j : j + p] for j in range(30)], axis=2)
+    return (win == 3 - win[:, :, ::-1]).all(axis=2) & extract_plain(reads)["valid"].numpy()
+
+
 def _model_windows(reads: ReadPlanes):
-    """(hi, lo, valid) [B, P] as gate.cu's window_key computes them."""
+    """(hi, lo, valid, fstrand) [B, P] as gate.cu's window_key computes
+    them."""
     words, bad = _stage(reads)
     p = reads.width - 29
     s = np.arange(p)
@@ -185,12 +202,12 @@ def _model_windows(reads: ReadPlanes):
     m = s >> 5
     ok = (_funnel_r(bad[:, m], bad[:, m + 1], (s & 31).astype(np.uint32))
           & np.uint64(0x3FFFFFFF)) == 0
-    return (key >> np.uint64(32)).astype(np.uint32), (key & M32).astype(np.uint32), ok
+    return (key >> np.uint64(32)).astype(np.uint32), (key & M32).astype(np.uint32), ok, fw < rc
 
 
 def _model_gate(bloom, s4, s5, reads: ReadPlanes, k=BLOOM_K):
     """(wpos, whi, wlo, npass) as gate.cu's gate mode computes them."""
-    hi, lo, ok = _model_windows(reads)
+    hi, lo, ok, _ = _model_windows(reads)
     b, p = hi.shape
     blk = _mix(hi ^ np.uint32(0x243F6A88), lo, s4, s5) & np.uint32(len(bloom) - 1)
     m = _mix(lo ^ np.uint32(0xB7E15162), hi, s5, s4)
@@ -227,7 +244,7 @@ def test_kernel_model_matches_plain(b, l, lens, form):
     got_gate = _model_gate(bloom, s4, s5, reads)
     got_planes = _model_windows(reads)
     want_gate, want_planes = _as_numpy(window_gate_plain(_tdb(bloom, s4, s5), reads),
-                                       extract_plain(reads))
+                                       extract_plain(reads, fstrand=True))
     for g, w in zip(got_gate + got_planes, want_gate + want_planes):
         np.testing.assert_array_equal(g, w)
     assert want_gate[3].max() > BLOOM_K
@@ -244,10 +261,10 @@ def test_model_reads_bits_past_length_as_packed():
     reads = ReadPlanes(torch.from_numpy(lengths), l, packed=torch.from_numpy(packed.view(np.int32)),
                        exc=torch.from_numpy(exc))
     got = _model_windows(reads)
-    want = extract_plain(reads)
-    for g, k in zip(got, ("hi", "lo", "valid")):
+    want = extract_plain(reads, fstrand=True)
+    for g, k in zip(got, ("hi", "lo", "valid", "fstrand")):
         w = want[k].numpy()
-        np.testing.assert_array_equal(g, w.view(np.uint32) if k != "valid" else w)
+        np.testing.assert_array_equal(g, w.view(np.uint32) if k in ("hi", "lo") else w)
     assert not got[2][7, :3].any() and got[2][6].all()  # exception at 7*l+2; row 6 clean
 
 
@@ -259,6 +276,9 @@ def test_dispatch_on_cpu_uses_the_plain_version():
         for g, w in zip(window_gate(db, reads), window_gate_plain(db, reads)):
             assert torch.equal(g, w)
         got, want = extract(reads), extract_plain(reads)
+        assert all(torch.equal(got[k], want[k]) for k in want) and "fstrand" not in got
+        got, want = extract(reads, fstrand=True), extract_plain(reads, fstrand=True)
+        assert set(got) == {"hi", "lo", "valid", "fstrand"}
         assert all(torch.equal(got[k], want[k]) for k in want)
     assert (window_gate_cuda.launches, extract_cuda.launches) == before
     with pytest.raises(ValueError, match="CUDA"):
@@ -285,9 +305,11 @@ def test_kernel_matches_plain_on_card(b, l, lens, form):
     got = window_gate(db, reads)
     assert window_gate_cuda.launches == before + 1
     want = window_gate_plain(db, reads)
-    gx, wx = extract(reads), extract_plain(reads)
+    gx, wx = extract(reads, fstrand=True), extract_plain(reads, fstrand=True)
+    g3 = extract_cuda(reads)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    for k in ("hi", "lo", "valid"):
+    for k in ("hi", "lo", "valid", "fstrand"):
         assert torch.equal(gx[k], wx[k]), k
+    assert set(g3) == {"hi", "lo", "valid"} and torch.equal(g3["hi"], wx["hi"])

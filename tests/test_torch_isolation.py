@@ -4,16 +4,19 @@
   ``chip_smoke.py``: no ``import`` of ``jax``, ``jaxlib`` or ``kmer_id_tpu``
   anywhere in the file, imports inside functions included.
 * One subprocess with a ``sys.meta_path`` finder that refuses those names
-  runs the five subcommands of the port's CLI (``classify-nx``,
-  ``classify-jobs``, ``classify-m3``, ``mitokmer``, ``readc``) on the CPU
-  against a tiny DB made here with the port's own host modules; each must
-  exit 0, write its files and leave no blocked module in ``sys.modules``.
+  runs every subcommand of the port's CLI on the CPU against a tiny DB made
+  here with the port's own host modules: the five classify subcommands
+  (``classify-nx``, ``classify-jobs``, ``classify-m3``, ``mitokmer``,
+  ``readc``) with each engine, ``classify-m3 --profile``, ``pack-db``,
+  ``report-b10`` and ``report-c3``; each must exit 0, write its files and
+  leave no blocked module in ``sys.modules``.
 """
 
 import ast
 import gzip
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -85,8 +88,8 @@ sys.meta_path.insert(0, _Refuse())
 from kmer_id_tpu_torch import cli
 
 rcs = {{}}
-for argv in json.loads(sys.argv[1]):
-    rcs[argv[0]] = cli.main(argv)
+for label, argv in json.loads(sys.argv[1]):
+    rcs[label] = cli.main(argv)
 print(json.dumps({{"rcs": rcs, "loaded": sorted(
     m for m in sys.modules if m.split(".")[0] in BLOCKED)}}))
 """
@@ -151,37 +154,81 @@ def blocked_run(tmp_path_factory):
         "target\tname\tcount\thit\ttested\tgsize\tnstrains\n" + "".join(
             f"{t}\tk_p_c_o_f_g_s{t}\t{t + 5}\t{20 + t}\t{100 + 3 * t}\t{1000 + t}\t1\n"
             for t in range(NUM_TARG)))
-    for job in ("j", "rj"):
+    for job in ("j", "rj", "j_legacy", "rj_legacy"):
         (root / job).mkdir()
         (root / job / f"{job}.txt").write_text(f"a 2\n{fq / 's_R1_tr.fastq.gz'}\n{fasta}\n")
-    argvs = [
-        ["classify-nx", str(fq), "--db-dir", str(root / "nxdb"), "--num-targ", str(NUM_TARG)],
-        ["classify-jobs", "-name", "db", "-jname", "j", "--root", str(root)],
-        ["classify-m3", "-wdir", str(mito), "-f1", str(fasta), "-f2", "none"],
-        ["mitokmer", "-w", str(mito), "-d", str(root / "mk"), "-i", str(fasta), "none"],
-        ["readc", "--jobs-name", "rj", "--folder", "db", "--root", str(root)],
+    fq_legacy, mito_legacy = root / "fq_legacy", root / "mito_legacy"
+    shutil.copytree(fq, fq_legacy)
+    shutil.copytree(mito, mito_legacy)
+    (root / "refkey10.txt").write_text("target\tname\tcount\tuse\n" + "".join(
+        f"{t}\tname{t}\t{t + 10}\t1\n" for t in range(NUM_TARG)))
+
+    def classify(legacy):
+        sfx, eng = ("_legacy", ["--engine", "legacy"]) if legacy else ("", [])
+        m = mito_legacy if legacy else mito
+        return [
+            (f"classify-nx{sfx}", ["classify-nx", str(fq_legacy if legacy else fq), "--db-dir",
+                                   str(root / "nxdb"), "--num-targ", str(NUM_TARG)]),
+            (f"classify-jobs{sfx}", ["classify-jobs", "-name", "db", "-jname", f"j{sfx}",
+                                     "--root", str(root)]),
+            (f"classify-m3{sfx}", ["classify-m3", "-wdir", str(m), "-f1", str(fasta),
+                                   "-f2", "none"]),
+            (f"mitokmer{sfx}", ["mitokmer", "-w", str(m), "-d", str(root / f"mk{sfx}"), "-i",
+                                str(fasta), "none"]),
+            (f"readc{sfx}", ["readc", "--jobs-name", f"rj{sfx}", "--folder", "db", "--root",
+                             str(root)]),
+        ], eng
+
+    runs = []
+    for legacy in (False, True):
+        argvs, eng = classify(legacy)
+        runs += [(label, argv + ENGINE + eng) for label, argv in argvs]
+    runs += [
+        ("classify-m3 --profile", ["classify-m3", "-wdir", str(mito), "-f1", str(fasta),
+                                   "--profile", str(root / "trace")] + ENGINE),
+        ("pack-db", ["pack-db", str(root / "db" / "db_probes.txt.gz"), str(root / "packed"),
+                     "--num-targ", str(NUM_TARG)]),
+        ("report-b10", ["report-b10", str(fq), str(root / "refkey10.txt"),
+                        str(root / "b10.csv")]),
+        ("report-c3", ["report-c3", str(fq), str(mito / "mitochondria_refkey.txt"),
+                       str(root / "c3.csv")]),
     ]
     out = subprocess.run(
-        [sys.executable, "-c", _RUN.format(blocked=BLOCKED),
-         json.dumps([a + ENGINE for a in argvs])],
+        [sys.executable, "-c", _RUN.format(blocked=BLOCKED), json.dumps(runs)],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr[-4000:]
-    files = {
-        "classify-nx": [fq / "s_result.txt", fq / "s_reads.txt"],
-        "classify-jobs": [root / "j" / "a_result.txt", root / "j" / "a_reads.txt"],
-        "classify-m3": [mito / "result.txt"],
-        "mitokmer": [root / "mk" / "mitokmer_result.csv"],
-        "readc": [root / "rj" / "a_result.txt", root / "rj" / "rj.csv"],
-    }
+    files = {}
+    for legacy in (False, True):
+        sfx = "_legacy" if legacy else ""
+        m, d = (mito_legacy, fq_legacy) if legacy else (mito, fq)
+        files.update({
+            f"classify-nx{sfx}": [d / "s_result.txt", d / "s_reads.txt"],
+            f"classify-jobs{sfx}": [root / f"j{sfx}" / "a_result.txt",
+                                    root / f"j{sfx}" / "a_reads.txt"],
+            f"classify-m3{sfx}": [m / "result.txt"],
+            f"mitokmer{sfx}": [root / f"mk{sfx}" / "mitokmer_result.csv"],
+            f"readc{sfx}": [root / f"rj{sfx}" / "a_result.txt", root / f"rj{sfx}" / f"rj{sfx}.csv"],
+        })
+    files.update({
+        "classify-m3 --profile": [m / "result.txt" for m in (mito,)] + [
+            p for p in (root / "trace").glob("*.json")],
+        "pack-db": [root / "packed" / n for n in ("manifest.json", "cuckoo.npy", "keys.npy")],
+        "report-b10": [root / "b10.csv"],
+        "report-c3": [root / "c3.csv"],
+    })
     return json.loads(out.stdout.strip().splitlines()[-1]), files
 
 
-@pytest.mark.parametrize("cmd", ["classify-nx", "classify-jobs", "classify-m3", "mitokmer",
-                                 "readc"])
+CLASSIFY = ["classify-nx", "classify-jobs", "classify-m3", "mitokmer", "readc"]
+
+
+@pytest.mark.parametrize("cmd", CLASSIFY + [c + "_legacy" for c in CLASSIFY] + [
+    "classify-m3 --profile", "pack-db", "report-b10", "report-c3"])
 def test_subcommand_runs_with_jax_and_jax_package_refused(blocked_run, cmd):
     result, files = blocked_run
     assert result["rcs"][cmd] == 0
     assert result["loaded"] == []
+    assert files[cmd]
     for p in files[cmd]:
         assert p.exists() and p.stat().st_size > 0, p

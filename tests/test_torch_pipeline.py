@@ -1,14 +1,16 @@
 """classify-nx through the PyTorch port's CLI (on the CPU) against the JAX
 package's CLI on copies of one directory of paired FASTQ.gz samples:
 ``_result.txt`` and ``_reads.txt`` must be byte-identical, and equal to the
-reference simulator (tests/refsim.py).  Also: the port never imports jax,
-both feed paths agree, the resume manifest, the per-read and per-batch
-accounting agree, and the paths not yet ported (the legacy engine,
-``minalign > 0``) refuse to run.
+reference simulator (tests/refsim.py), with the fingerprint engine and with
+``--engine legacy``.  Also: the port never imports jax, both feed paths
+agree, the resume manifest, the per-read and per-batch accounting agree,
+``--profile`` writes a trace, and what is not ported (``build-db``, the mesh
+and multi-host flags) refuses to run.
 """
 
 import gzip
 import io
+import json
 import os
 import shutil
 import subprocess
@@ -212,44 +214,86 @@ def test_account_batch_equals_per_read_account():
     assert pa.gcount.tolist() == pb.gcount.tolist() and pa.reads == pb.reads == 240
 
 
-def test_unported_paths_refuse(world, tmp_path):
-    """The legacy engine and minalign > 0 (ROADMAP item 10) refuse on every
-    entry point instead of running elsewhere."""
-    from kmer_id_tpu_torch import cli
-    from kmer_id_tpu_torch.engine.pipeline import (
-        SampleProcessor,
-        load_db,
-        make_classifier,
-    )
+@pytest.fixture(scope="module")
+def jax_legacy_runs(world):
+    """The JAX package's classify-nx with ``--engine legacy`` through its
+    CLI (which on one device does not read the flag and runs the
+    fingerprint engine) and through ``run_nx`` with a legacy config (its
+    legacy engine)."""
+    from kmer_id_tpu import cli as jax_cli
+    from kmer_id_tpu.config import ClassifyConfig as JaxClassifyConfig
+    from kmer_id_tpu.engine import pipeline as JP
 
+    d = _copy(world, "jax_legacy")
+    assert jax_cli.main(["classify-nx", str(d), "--db-dir", str(world["dbdir"]),
+                         "--engine", "legacy"] + ARGS) == 0
+    a = _copy(world, "jax_legacy_api")
+    db = JP.load_db(str(world["dbdir"] / "bData10.txt"), str(world["dbdir"] / "btree_10.txt"),
+                    str(world["dbdir"] / "probes10.txt.gz"), num_targ=NUM_TARG)
+    cfg = JaxClassifyConfig.preset("nx", num_targ=NUM_TARG, batch_size=32, max_len=128,
+                                   engine="legacy")
+    clf = JP.make_classifier(db, cfg)
+    assert type(clf).__name__ == "Classifier"
+    assert sorted(JP.run_nx(str(a), db, cfg, clf=clf)) == ["sA", "sB"]
+    return d, a
+
+
+def test_legacy_engine_cli_matches_jax_cli_and_refsim(world, jax_run, jax_legacy_runs):
+    """``--engine legacy``: the same files as the JAX CLI run with that
+    flag, as the JAX legacy engine's, and as the fingerprint engine's
+    (which equal RefSim)."""
+    from kmer_id_tpu_torch import cli
+
+    d = _copy(world, "torch_legacy")
+    assert cli.main(["classify-nx", str(d), "--db-dir", str(world["dbdir"]), "--device", "cpu",
+                     "--engine", "legacy"] + ARGS) == 0
+    for sample in ("sA", "sB"):
+        got = _outputs(d, sample)
+        for want in jax_legacy_runs + (jax_run,):
+            assert got == _outputs(want, sample), (sample, want)
+
+
+def test_profile_writes_a_trace(world, tmp_path):
+    from kmer_id_tpu_torch import cli
+
+    d = _copy(world, "profiled")
+    trace = tmp_path / "trace"
+    assert cli.main(["classify-nx", str(d), "--db-dir", str(world["dbdir"]), "--device", "cpu",
+                     "--profile", str(trace)] + ARGS) == 0
+    (path,) = list(trace.iterdir())
+    events = json.loads(path.read_text())["traceEvents"]
+    assert any(str(e.get("name", "")).startswith("aten::") for e in events)
+
+
+def test_unported_paths_refuse(world, tmp_path):
+    """What the port does not have refuses on every entry point instead of
+    running elsewhere: ``build-db``, a mesh of more than one device and the
+    multi-host flags."""
+    from kmer_id_tpu_torch import cli
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(["build-db", "-name", "x", "-fadir", str(tmp_path)])
     base = ["classify-nx", str(tmp_path), "--db-dir", str(world["dbdir"]), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(base + ARGS + ["--engine", "legacy"])
-    db = load_db(str(world["dbdir"] / "bData10.txt"), str(world["dbdir"] / "btree_10.txt"),
-                 str(world["dbdir"] / "probes10.txt.gz"), num_targ=NUM_TARG)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_classifier(db, ClassifyConfig.preset("nx", num_targ=NUM_TARG, minalign=20),
-                        device="cpu")
-    cfg = ClassifyConfig.preset("nx", num_targ=NUM_TARG, batch_size=8, max_len=64)
-    clf = make_classifier(db, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="minalign"):
-        SampleProcessor(clf, ClassifyConfig.preset("nx", num_targ=NUM_TARG, minalign=20))
-    # the vf6 and m3 subcommands refuse the legacy engine too
+    for flags in (["--mesh-data", "2"], ["--mesh-db", "4"], ["--num-processes", "2"],
+                  ["--coordinator", "localhost:1234"], ["--process-id", "0"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cli.main(base + ARGS + flags)
+    # the vf6 and m3 subcommands refuse a mesh too; a mesh of one runs
     jobs = tmp_path / "jobs"
     jobs.mkdir()
     (jobs / "jobs.txt").write_text("j1 0\n")
-    dbd = tmp_path / "db"  # the DB under its vf6 and m3 names
+    dbd = tmp_path / "db"  # the DB under its vf6 name
     dbd.mkdir()
-    for prefix in ("db_", "mitochondria_"):
-        for src, dst in (("bData10.txt", "data.txt"), ("btree_10.txt", "tree.txt"),
-                         ("probes10.txt.gz", "probes.txt.gz")):
-            shutil.copy(world["dbdir"] / src, dbd / (prefix + dst))
-    legacy = ["--engine", "legacy", "--device", "cpu"]
+    for src, dst in (("bData10.txt", "data.txt"), ("btree_10.txt", "tree.txt"),
+                     ("probes10.txt.gz", "probes.txt.gz")):
+        shutil.copy(world["dbdir"] / src, dbd / ("db_" + dst))
+    jobs_argv = ["classify-jobs", "-name", "db", "-jname", "jobs", "--root", str(tmp_path),
+                 "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["classify-jobs", "-name", "db", "-jname", "jobs", "--root", str(tmp_path)]
-                 + legacy)
+        cli.main(jobs_argv + ["--mesh-data", "2", "--mesh-db", "2"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["classify-m3", "-wdir", str(dbd), "-f1", "none"] + legacy)
+        cli.main(["classify-m3", "-wdir", str(dbd), "-f1", "none", "--mesh-db", "2"])
+    assert cli.main(jobs_argv + ["--mesh-data", "1", "--mesh-db", "1"]) == 0
 
 
 def test_cuda_device_refused_without_cuda(world, tmp_path):
