@@ -32,11 +32,22 @@ modules; then drives every classify path through the port's CLI:
   checked against the simulator), the nx big sample timed and profiled;
 * the ``minalign > 0`` verify replay on a 400-kb genome world of 3,000
   reads: cuda against cpu at ``minalign`` 0 and 200, the legacy engine
-  against the fingerprint engine at 0.
+  against the fingerprint engine at 0;
+* the driver's overlap of host and device (engine/pipeline.py: submitter
+  and collector threads on streams of their own): the nx small sample
+  again through SampleProcessor with a delaying engine proxy at batches of
+  1,024 (equal to the CLI run's files, which equal RefSim), and the
+  500,000-read sample with its stages timed apart (decode alone; host
+  submit and collect + account; device H2D, kernels and D2H) and the
+  device's busy share over the whole sample's wall;
+* ``build-db`` (host code) on a 3-Mbase genome set in RAM and with
+  ``--spill`` (byte-equal files), its DB then classifying a sample through
+  classify-jobs on the card, equal to RefSim.
 
 Every phase that fails ends the run with a non-zero exit code, and so does
 a path that did not go through its kernels: window_gate and probe_verify on
-each fingerprint path; on each legacy run window_extract once per device run
+each fingerprint path (in the overlap runs window_gate exactly once per
+batch, counted from the submitter thread); on each legacy run window_extract once per device run
 (short-read batch, chunk group, replay) and compact_ranks once per
 short-read batch.  Without a
 CUDA device it exits 1 before doing anything.
@@ -114,11 +125,11 @@ def _wrappers() -> dict:
 
 def reset_counts() -> None:
     for fn in _wrappers().values():
-        fn.launches = 0
+        fn.launches.reset()
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    return {name: fn.launches.value for name, fn in _wrappers().items()}
 
 
 def card_line() -> str:
@@ -1470,17 +1481,22 @@ class legacy_runs:
     """While open, counts the legacy engine's device runs by mode
     (``Classifier._run``: one per short-read batch in ``compact`` mode, per
     chunk group or overflow replay in ``targets``, per verify batch in
-    ``detail``), so a run's kernel launches can be held against them."""
+    ``detail``), so a run's kernel launches can be held against them.  The
+    pipeline's submitter and collector threads both run the engine, so
+    the count takes a lock."""
 
     def __enter__(self):
+        import threading
+
         from kmer_id_tpu_torch.engine.classify import Classifier
 
         self.counts = dict.fromkeys(LEGACY_MODES, 0)
         self._run = run = Classifier._run
-        counts = self.counts
+        counts, lock = self.counts, threading.Lock()
 
         def counted(clf, seen, reads, mode, max_steps=None):
-            counts[mode] += 1
+            with lock:
+                counts[mode] += 1
             return run(clf, seen, reads, mode, max_steps)
 
         Classifier._run = counted
@@ -1725,6 +1741,388 @@ def verify_phase(device="cuda", work=WORK, minalign=200) -> dict:
     return {"ungated": base[0], "gated": gated[0]}
 
 
+# ------------------------------------------------ overlap and build-db phases
+
+
+class SlowEngine:
+    """Engine proxy that delays each submit, collect, grouped collect and
+    long-read call by a per-call amount (ms, from ``delays``), widening the
+    pipeline's submit/collect race windows, and reports ``batch_size`` (so a
+    sample runs in more, smaller batches).  Counts its submits."""
+
+    def __init__(self, clf, delays, batch_size):
+        self._clf = clf
+        self._delays = delays
+        self.batch_size = batch_size
+        self._n = {"submit": 0, "collect": 0}  # each side runs on one thread
+
+    def __getattr__(self, name):
+        return getattr(self._clf, name)
+
+    @property
+    def submits(self) -> int:
+        return self._n["submit"]
+
+    def _sleep(self, side):
+        n = self._n[side]
+        self._n[side] = n + 1
+        time.sleep(self._delays[(n + (side == "submit")) % len(self._delays)] / 1000.0)
+
+    def submit_batch(self, seen, batch):
+        self._sleep("submit")
+        return self._clf.submit_batch(seen, batch)
+
+    def collect(self, seen, pending):
+        self._sleep("collect")
+        return self._clf.collect(seen, pending)
+
+    def collect_many(self, seen, pendings):
+        self._sleep("collect")
+        return self._clf.collect_many(seen, pendings)
+
+    def process_long_many(self, seen, items):
+        self._sleep("collect")
+        return self._clf.process_long_many(seen, items)
+
+
+def clf_cfg(nx):
+    """The nx phase's ClassifyConfig."""
+    from kmer_id_tpu_torch.config import ClassifyConfig
+
+    return ClassifyConfig.preset("nx", num_targ=NUM_TARG, batch_size=nx["batch"],
+                                 max_len=nx["max_len"])
+
+
+def nx_classifier(device, nx):
+    """The fingerprint engine on the nx phase's DB cache, at its shape."""
+    from kmer_id_tpu_torch.engine.pipeline import load_db, make_classifier
+
+    _, _, _, db_dir, cache, _ = nx["db"]
+    db = load_db(os.path.join(db_dir, "bData10.txt"), os.path.join(db_dir, "btree_10.txt"),
+                 os.path.join(db_dir, "probes10.txt.gz"), num_targ=NUM_TARG, cache_dir=cache)
+    return make_classifier(db, clf_cfg(nx), cache_dir=cache, device=device)
+
+
+def overlap_phase(device, nx, clf, work=WORK, reps=3, batch=1024) -> dict:
+    """The nx small sample again through SampleProcessor on the native feed
+    (both mates, as run_nx feeds them), its engine wrapped in SlowEngine at
+    batches of ``batch`` rows and pipeline depths 4-6: every repetition's
+    gcount, ucount and saved reads must equal the CLI run's files (which
+    equal RefSim), and window_gate must have launched exactly once per
+    batch, from the submitter thread."""
+    import dataclasses
+    import io
+
+    from kmer_id_tpu_torch.engine.pipeline import SampleProcessor
+
+    fq = os.path.join(work, "fastq")
+    want = nx["outputs"]
+    out = []
+    for rep in range(reps):
+        proxy = SlowEngine(clf, (rep % 5, 11, 0, (rep * 3) % 17), batch)
+        cfg = dataclasses.replace(clf_cfg(nx), batch_size=batch)
+        buf = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        sp = SampleProcessor(proxy, cfg, reads_out=buf)
+        if not sp.native or sp.collect_group != 4:
+            raise AssertionError("overlap: the native feed and grouped collects must run")
+        sp.pipeline_depth = 4 + rep % 3
+        for mate in ("R1", "R2"):
+            sp.feed_file(os.path.join(fq, f"small_{mate}_tr.fastq.gz"), fmt="fastq_gz")
+        res = sp.finish()
+        run_s = time.perf_counter() - t0
+        launches = read_counts()
+        lines = [f"{i},{res.gcount[i]},{res.ucount[i]}" for i in range(len(res.gcount))]
+        if lines != want["small_result.txt"].splitlines():
+            raise AssertionError(f"overlap rep {rep}: gcount/ucount != the CLI's (RefSim)")
+        if buf.getvalue() != want["small_reads.txt"]:
+            raise AssertionError(f"overlap rep {rep}: saved reads != the CLI's (RefSim)")
+        if device != "cpu" and (launches["window_gate"] != proxy.submits
+                                or launches["probe_verify"] <= 0):
+            raise AssertionError(f"overlap rep {rep}: launches {launches} for "
+                                 f"{proxy.submits} batches")
+        out.append({"batches": proxy.submits, "depth": sp.pipeline_depth, "s": run_s,
+                    "launches": launches})
+        say(f"overlap rep {rep}: {res.reads} reads in {proxy.submits} batches of {batch} "
+            f"(delayed engine, depth {sp.pipeline_depth}) in {run_s:.2f} s: files equal the "
+            f"CLI run's (RefSim); launches {launches}")
+    return {"reps": out, "launches": out[-1]["launches"]}
+
+
+def _union_ms(intervals) -> float:
+    """Total length of the union of (start, end) intervals, in ms (us in)."""
+    total, end = 0.0, -np.inf
+    for a, b in sorted(intervals):
+        if b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total / 1e3
+
+
+def stage_phase(device, nx, clf, work=WORK) -> dict:
+    """The 500,000-read sample through SampleProcessor as run_nx drives it
+    (both mates on the native feed; the classifier built beforehand), its
+    stages timed apart:
+
+    * decode alone: the native feeder drained over both mates (gz decode,
+      parse, trim, 2-bit packing);
+    * the sample's wall, unprofiled, and its reads/s;
+    * under torch.profiler (device activity of every thread), with the
+      submit steps and the collector jobs timed on the host: host ms of
+      submit (H2D enqueue, engine launches, host branches; submitter
+      thread) and of collect + account (collector thread), device ms of
+      the H2D copies, the kernels and the D2H copies, and the device's busy
+      share: the union of its intervals over the whole sample's wall;
+    * ucount: the finalize stage (max-merge of seen and seen_ovr, counts).
+
+    Each run's window_gate launches must equal its batches."""
+    import io
+    import threading
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kmer_id_tpu_torch.engine.pipeline import SampleProcessor
+    from kmer_id_tpu_torch.io.native_feed import NativePlaneFeeder
+
+    fq = os.path.join(work, "fastq")
+    mates = [os.path.join(fq, f"big_{m}_tr.fastq.gz") for m in ("R1", "R2")]
+    cfg = clf_cfg(nx)
+    feeder = NativePlaneFeeder(nx["batch"], nx["max_len"], False)
+    t0 = time.perf_counter()
+    nbs = sum(1 for m in mates for _ in feeder.feed_path(m, fmt="fastq_gz"))
+    nbs += sum(1 for _ in feeder.flush())
+    decode_s = time.perf_counter() - t0
+
+    host = {}  # name: [seconds, calls] of the timed steps
+    lock = threading.Lock()
+
+    def timed(name, fn):
+        def run(self, *a):
+            t = time.perf_counter()
+            try:
+                return fn(self, *a)
+            finally:
+                with lock:
+                    acc = host.setdefault(name, [0.0, 0])
+                    acc[0] += time.perf_counter() - t
+                    acc[1] += 1
+        return run
+
+    def sample():
+        reset_counts()
+        sync(device)
+        t = time.perf_counter()
+        sp = SampleProcessor(clf, cfg, reads_out=io.StringIO())
+        for m in mates:
+            sp.feed_file(m, fmt="fastq_gz")
+        res = sp.finish()
+        sync(device)
+        wall = time.perf_counter() - t
+        launches = read_counts()
+        if res.reads != nx["reads"]:
+            raise AssertionError(f"stages: {res.reads} reads, expected {nx['reads']}")
+        if device != "cpu" and launches["window_gate"] != nbs:
+            raise AssertionError(f"stages: window_gate launched {launches['window_gate']} "
+                                 f"times for {nbs} batches")
+        return res, wall, launches
+
+    res, wall, launches = sample()
+    names = {"_consume_native": "submit", "_group_job": "collect+account",
+             "_drain_job": "collect+account"}
+    saved = {n: getattr(SampleProcessor, n) for n in names}
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device != "cpu" else [])
+    try:
+        for n, label in names.items():
+            setattr(SampleProcessor, n, timed(label, saved[n]))
+        with profile(activities=acts) as prof:
+            pres, pwall, plaunches = sample()
+    finally:
+        for n, fn in saved.items():
+            setattr(SampleProcessor, n, fn)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if device != "cpu" and not dev:
+        raise AssertionError("stages: the profiler saw no device activity")
+
+    def dev_ms(pred):
+        return sum(e.time_range.end - e.time_range.start for e in dev if pred(e.name)) / 1e3
+
+    h2d = dev_ms(lambda n: "HtoD" in n)
+    d2h = dev_ms(lambda n: "DtoH" in n)
+    kern = dev_ms(lambda n: "Memcpy" not in n and "Memset" not in n)
+    busy = _union_ms((e.time_range.start, e.time_range.end) for e in dev)
+    ms = {k: v[0] * 1e3 / nbs for k, v in host.items()}
+    out = {"batches": nbs, "reads": res.reads, "decode_ms_per_batch": decode_s * 1e3 / nbs,
+           "wall_s": wall, "reads_per_s": res.reads / wall, "profiled_wall_s": pwall,
+           "submit_ms_per_batch": ms.get("submit"),
+           "collect_account_ms_per_batch": ms.get("collect+account"),
+           "h2d_ms_per_batch": h2d / nbs, "kernel_ms_per_batch": kern / nbs,
+           "d2h_ms_per_batch": d2h / nbs, "device_busy_ms": busy,
+           "busy_share_profiled": busy / (pwall * 1e3),
+           "busy_share_unprofiled": busy / (wall * 1e3),
+           "ucount_ms": res.stage_s.get("finalize", float("nan")) * 1e3,
+           "launches": launches, "launches_per_batch": plaunches["window_gate"] / nbs,
+           "device_launches_per_batch": sum(1 for e in dev if "Memcpy" not in e.name
+                                            and "Memset" not in e.name) / nbs}
+    say(f"stages ({nbs} batches of {nx['batch']}x{nx['max_len']}, {res.reads} reads): decode "
+        f"alone {out['decode_ms_per_batch']} ms/batch ({decode_s} s); sample wall {wall} s "
+        f"unprofiled = {out['reads_per_s']} reads/s; under the profiler {pwall} s: submit "
+        f"(host, submitter thread) {out['submit_ms_per_batch']} ms/batch, collect + account "
+        f"(host, collector thread) {out['collect_account_ms_per_batch']} ms/batch; device: "
+        f"H2D {out['h2d_ms_per_batch']} ms/batch, kernels {out['kernel_ms_per_batch']} ms/batch "
+        f"in {out['device_launches_per_batch']} launches/batch, D2H {out['d2h_ms_per_batch']} "
+        f"ms/batch; device busy (union) {busy} ms = {100 * out['busy_share_profiled']}% of "
+        f"the profiled wall, {100 * out['busy_share_unprofiled']}% of the unprofiled wall; "
+        f"ucount {out['ucount_ms']} ms (unprofiled run)")
+    return out
+
+
+BUILD_GENERA, BUILD_SPECIES = 4, 6  # targets: genera 2-5, species 6-29
+BUILD_LEN = 120_000
+
+
+def build_world(rng, root, name="syn"):
+    """A genome set for build-db: one genome per species of 4 genera x 6
+    (two genomes for species 6, so its probes need 2 occurrences), each
+    with a 4-kb block shared inside its genus (those probes merge to the
+    genus), species 7 sharing a 3-kb block with an outgroup genome of the
+    filter list (poisoned), N runs, lowercase and U bases; gz FASTA of
+    80-column lines under ``root/fa``.  Returns (fadir, {accession: seq})."""
+    fadir = os.path.join(root, "fa")
+    wdir = os.path.join(root, name)
+    os.makedirs(fadir)
+    os.makedirs(wdir)
+    genus_block = [ACGT[rng.integers(0, 4, size=4000, dtype=np.uint8)]
+                   for _ in range(BUILD_GENERA)]
+    outg = ACGT[rng.integers(0, 4, size=3000, dtype=np.uint8)]
+    genomes, data, tree = {}, [], []
+    species = range(2 + BUILD_GENERA, 2 + BUILD_GENERA + BUILD_GENERA * BUILD_SPECIES)
+    for t in species:
+        genus = 2 + (t - 2 - BUILD_GENERA) % BUILD_GENERA
+        tree.append(f"{genus}\t{t}")
+        for copy in range(2 if t == species[0] else 1):
+            seq = ACGT[rng.integers(0, 4, size=BUILD_LEN, dtype=np.uint8)]
+            p = int(rng.integers(0, BUILD_LEN - 8000))
+            seq[p : p + 4000] = genus_block[genus - 2]
+            if t == species[1]:
+                seq[p + 4000 : p + 7000] = outg
+            if t % 5 == 0:
+                seq[1000:1200] = ord("N")
+                seq[5000:6000] += ord("a") - ord("A")  # lowercase
+            if t % 7 == 0:
+                head = seq[:20_000]
+                head[head == ord("T")] = ord("U")
+            acc = f"S{t}_{copy}"
+            genomes[acc] = seq
+            data.append(f"{t}\t{acc}")
+    tree = [f"1\t{g}" for g in range(2, 2 + BUILD_GENERA)] + tree
+    genomes["OUT"] = np.concatenate([ACGT[rng.integers(0, 4, size=2000, dtype=np.uint8)], outg])
+    for acc, seq in genomes.items():
+        with gzip.open(os.path.join(fadir, acc + ".fasta.gz"), "wb", compresslevel=1) as f:
+            f.write(b">%s\n" % acc.encode())
+            f.write(b"\n".join(seq[i : i + 80].tobytes() for i in range(0, len(seq), 80)) + b"\n")
+    for suffix, lines in (("data", data), ("tree", tree), ("filter", ["OUT"])):
+        with open(os.path.join(wdir, f"{name}_{suffix}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return fadir, genomes
+
+
+def build_phase(device, work=WORK, name="syn", n_reads=6000) -> dict:
+    """build-db through the port's CLI on build_world's genome set, in RAM
+    and with ``--spill`` (16 shards, 1-MB batches: several shard merges),
+    whose ``_probes.txt`` and ``_count.txt`` must be byte-equal; then the DB
+    (its probes gzipped) classifies a FASTQ.gz sample of reads drawn from
+    the genomes (and random ones) through classify-jobs on ``device``,
+    whose files must equal RefSim on the built probes."""
+    from kmer_id_tpu_torch import cli
+    from kmer_id_tpu_torch.core.taxonomy import Taxonomy
+    from kmer_id_tpu_torch.db.metadata import load_data_txt, load_tree_edges
+    from kmer_id_tpu_torch.db.probes import parse_probes_text
+    from kmer_id_tpu_torch.io.fastx import iter_fastq_gz
+
+    RefSim = repo_refsim()
+    rng = np.random.default_rng(SEED + 7)
+    root = os.path.join(work, "build")
+    t0 = time.perf_counter()
+    fadir, genomes = build_world(rng, root, name)
+    gen_s = time.perf_counter() - t0
+    wdir = os.path.join(root, name)
+    argv = ["build-db", "-name", name, "-fadir", fadir, "--root", root]
+    files = [os.path.join(wdir, f"{name}_{k}.txt") for k in ("probes", "count")]
+    got = {}
+    for mode, extra in (("in RAM", []),
+                        ("spill", ["--spill", "--spill-shard-bits", "4", "--spill-batch-mb", "1"])):
+        t0 = time.perf_counter()
+        if cli.main(argv + extra) != 0:
+            raise AssertionError(f"build-db {mode} exited non-zero")
+        secs = time.perf_counter() - t0
+        got[mode] = (tuple(open(p, "rb").read() for p in files), secs)
+    if got["in RAM"][0] != got["spill"][0]:
+        raise AssertionError("build-db: --spill's _probes.txt/_count.txt != the in-RAM build's")
+    rec = parse_probes_text(files[0])
+    n_probes = len(rec)
+    if n_probes < 1000 or len(np.unique(rec.target)) < BUILD_GENERA:
+        raise AssertionError(f"build-db: {n_probes} probes on {np.unique(rec.target)}")
+    say(f"build-db: {len(genomes)} genomes, {sum(len(g) for g in genomes.values())} bases "
+        f"(made in {gen_s:.1f} s): {n_probes} probes on {len(np.unique(rec.target))} targets; "
+        f"in RAM {got['in RAM'][1]} s, --spill {got['spill'][1]} s, byte-equal outputs")
+
+    with open(files[0], "rb") as f, gzip.open(os.path.join(wdir, f"{name}_probes.txt.gz"), "wb",
+                                              compresslevel=1) as g:
+        shutil.copyfileobj(f, g)
+    pool = [g for acc, g in genomes.items() if acc != "OUT"]
+    reads = np.empty((n_reads, READ_LEN), np.uint8)
+    for i in range(n_reads):
+        if i % 4 == 3:
+            reads[i] = ACGT[rng.integers(0, 4, size=READ_LEN, dtype=np.uint8)]
+        else:
+            g = pool[int(rng.integers(len(pool)))]
+            p = int(rng.integers(0, len(g) - READ_LEN))
+            reads[i] = g[p : p + READ_LEN]
+    fq = os.path.join(root, "reads.fastq.gz")
+    with gzip.open(fq, "wb", compresslevel=1) as f:
+        for i in range(n_reads):
+            qual = b"J" * (READ_LEN - 25) + (b"#" * 25 if i % 10 == 0 else b"J" * 25)
+            f.write(b"@b%d\n%s\n+\n%s\n" % (i, reads[i].tobytes(), qual))
+    jname = "synjobs"
+    os.makedirs(os.path.join(root, jname))
+    with open(os.path.join(root, jname, jname + ".txt"), "w") as f:
+        f.write(f"sample 1\n{fq}\n")
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["classify-jobs", "-name", name, "-jname", jname, "--root", root,
+                   "--batch-size", str(JOB_BATCH), "--max-len", str(JOB_MAX_LEN),
+                   "--device", device])
+    run_s = time.perf_counter() - t0
+    launches = read_counts()
+    if rc != 0:
+        raise AssertionError(f"classify-jobs on the built DB exited {rc}")
+    num_targ = load_data_txt(os.path.join(wdir, f"{name}_data.txt")).num_targ
+    parent = Taxonomy.from_edges(load_tree_edges(os.path.join(wdir, f"{name}_tree.txt")),
+                                 num_nodes=num_targ).parent.tolist()
+    records = list(iter_fastq_gz(fq))
+    order = np.argsort(rec.keys, kind="stable")
+    sim = RefSim(probe_dict(rec.keys[order], rec.target[order], records, True), parent,
+                 num_targ=num_targ, u_is_t=True, savenum=12, variant="vf6")
+    sim.feed(records)
+    with open(os.path.join(root, jname, "sample_result.txt")) as f:
+        if f.read().splitlines() != sim.result_lines():
+            raise AssertionError("built DB: _result.txt != RefSim")
+    with open(os.path.join(root, jname, "sample_reads.txt")) as f:
+        if f.read() != "".join(f">{t}:{a}\n{s}\n" for t, a, s in sim.saved):
+            raise AssertionError("built DB: _reads.txt != RefSim")
+    if sum(sim.gcount[2:]) < n_reads // 2:
+        raise AssertionError(f"built DB: only {sum(sim.gcount[2:])} reads classified")
+    say(f"build-db DB: classify-jobs on {device}, {sim.reads} reads ({sum(sim.gcount[2:])} "
+        f"classified) in {run_s:.1f} s: _result.txt and _reads.txt equal RefSim; launches "
+        f"{launches}")
+    return {"launches": launches, "probes": n_probes, "in_ram_s": got["in RAM"][1],
+            "spill_s": got["spill"][1]}
+
+
 def main() -> int:
     import torch
 
@@ -1766,6 +2164,14 @@ def main() -> int:
     pr = probe_phase(nx["db"])
     say(f"phase probe: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    clf = nx_classifier("cuda", nx)
+    ov = overlap_phase("cuda", nx, clf)
+    say(f"phase overlap: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    st = stage_phase("cuda", nx, clf)
+    del clf
+    say(f"phase stages: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     jobs = jobs_phase("cuda", nx["db"])
     say(f"phase jobs: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -1777,8 +2183,13 @@ def main() -> int:
     t0 = time.perf_counter()
     vr = verify_phase("cuda")
     say(f"phase verify: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bd = build_phase("cuda")
+    say(f"phase build-db: {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(WORK, ignore_errors=True)
-    fp_paths = {"nx": nx["launches"], "jobs": jobs["launches"], "m3": m3["launches"]}
+    fp_paths = {"nx": nx["launches"], "jobs": jobs["launches"], "m3": m3["launches"],
+                "nx_overlap": ov["launches"], "nx_stages": st["launches"],
+                "build_db_jobs": bd["launches"]}
     paths = {**fp_paths, **{f"{p}_legacy": r["launches"] for p, r in lg.items()}}
     by_kernel = {k: {path: n[k] for path, n in paths.items()} for k in KERNELS}
     for k in ("window_gate", "probe_verify"):
@@ -1808,6 +2219,19 @@ def main() -> int:
         f"{lp['busy_ms_per_batch']} ms/batch, {lp['launches_per_batch']} launches/batch")
     say(f"legacy runs by path: { {p: r['runs'] for p, r in lg.items()} }")
     say(f"verify world on {card}: ungated gcount {vr['ungated']}, gated {vr['gated']}")
+    say(f"nx big sample through SampleProcessor on {card}: {st['reads']} reads in "
+        f"{st['batches']} batches, {st['wall_s']} s = {st['reads_per_s']} reads/s; per batch: "
+        f"decode alone {st['decode_ms_per_batch']} ms, submit {st['submit_ms_per_batch']} ms "
+        f"(host), collect + account {st['collect_account_ms_per_batch']} ms (host), H2D "
+        f"{st['h2d_ms_per_batch']} ms, kernels {st['kernel_ms_per_batch']} ms, D2H "
+        f"{st['d2h_ms_per_batch']} ms (device); device busy {st['device_busy_ms']} ms over the "
+        f"whole sample = {100 * st['busy_share_profiled']}% of the profiled wall "
+        f"({st['profiled_wall_s']} s), {100 * st['busy_share_unprofiled']}% of the unprofiled; "
+        f"ucount {st['ucount_ms']} ms")
+    say(f"overlap reruns on {card}: {[(r['batches'], r['depth'], round(r['s'], 3)) for r in ov['reps']]} "
+        f"(batches, depth, s), files equal RefSim's")
+    say(f"build-db on the host ({card} for the classify): {bd['probes']} probes, in RAM "
+        f"{bd['in_ram_s']} s, --spill {bd['spill_s']} s")
     say(f"kernel launches by path: {by_kernel}")
 
     def entry(name, source, replaces, times, max_err, shapes):

@@ -5,6 +5,7 @@
     python -m kmer_id_tpu_torch.cli classify-m3 -wdir DIR -f1 READS [-f2 READS|none] [...]
     python -m kmer_id_tpu_torch.cli mitokmer -w DIR -d OUT -i READS1 READS2|none [...]
     python -m kmer_id_tpu_torch.cli readc --jobs-name JOBS --folder DB [...]
+    python -m kmer_id_tpu_torch.cli build-db -name DB -fadir DIR [-outdir DIR] [--root R] [--spill]
     python -m kmer_id_tpu_torch.cli pack-db PROBES OUT_DIR --num-targ N
     python -m kmer_id_tpu_torch.cli report-b10 RESULT_DIR REFKEY OUT_CSV [--no-default-excludes]
     python -m kmer_id_tpu_torch.cli report-c3 RESULT_DIR REFKEY OUT_CSV
@@ -14,8 +15,10 @@ writes the same files.  The classify subcommands take ``--batch-size
 --max-len --cache-dir --engine {fp,legacy} --profile DIR`` (a
 ``torch.profiler`` trace of classify-nx, classify-jobs and classify-m3,
 written as Chrome trace JSON into DIR) and ``--device``, which defaults to
-``cuda`` and fails when no CUDA device is present.  Not ported, and
-refused with ``NotImplementedError``: ``build-db``, a mesh of more than one
+``cuda`` and fails when no CUDA device is present.  ``build-db`` runs on
+the host (numpy and the g++-built db/native library; ``--spill
+--spill-shard-bits --spill-batch-mb`` for the disk-spilled build).  Not
+ported, and refused with ``NotImplementedError``: a mesh of more than one
 device (``--mesh-data``/``--mesh-db`` > 1) and the multi-host flags
 (``--coordinator --num-processes --process-id``).
 """
@@ -77,12 +80,13 @@ def main(argv=None):
     ap.add_argument("-v", "--verbose", action="count", default=1)
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    b = sub.add_parser("build-db", help="3-pass probe DB construction (not ported)")
+    b = sub.add_parser("build-db", help="3-pass probe DB construction")
     b.add_argument("-name", required=True)
     b.add_argument("-fadir", default="")
     b.add_argument("-outdir", default="")
     b.add_argument("--root", default=".")
-    b.add_argument("--spill", action="store_true")
+    b.add_argument("--spill", action="store_true",
+                   help="disk-spilled bounded-memory build (corpus-scale DBs)")
     b.add_argument("--spill-shard-bits", type=int, default=6)
     b.add_argument("--spill-batch-mb", type=int, default=1024)
 
@@ -150,13 +154,25 @@ def main(argv=None):
     args = ap.parse_args(argv)
     set_verbosity(args.verbose)
 
-    if args.cmd == "build-db":
-        raise NotImplementedError(f"build-db: {NOT_PORTED}")
     if getattr(args, "mesh_data", 1) * getattr(args, "mesh_db", 1) > 1:
         raise NotImplementedError(f"a mesh of more than one device: {NOT_PORTED}")
     if any(getattr(args, k, None) is not None
            for k in ("coordinator", "num_processes", "process_id")):
         raise NotImplementedError(f"multi-host runs: {NOT_PORTED}")
+
+    if args.cmd == "build-db":
+        if args.spill:
+            from kmer_id_tpu_torch.db.spill import build_probes_spill
+
+            res = build_probes_spill(args.name, args.fadir, args.outdir, root=args.root,
+                                     shard_bits=args.spill_shard_bits,
+                                     batch_bytes=args.spill_batch_mb << 20)
+        else:
+            from kmer_id_tpu_torch.db.build import build_probes
+
+            res = build_probes(args.name, args.fadir, args.outdir, root=args.root)
+        log(f"built {len(res.records)} probes over {res.num_targ} targets")
+        return 0
 
     if args.cmd == "pack-db":
         from kmer_id_tpu_torch.db.probes import pack_probes, parse_probes_text, save_packed

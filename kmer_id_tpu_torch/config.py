@@ -11,8 +11,8 @@ variants become presets —
 * ``m3``  — mitochondrial single-sample mode (``kmer_read_m3.cpp``):
   ``-wdir/-f1/-f2`` flags.
 
-Copy of ``kmer_id_tpu/config.py`` (its ``ClassifyConfig``; the builder's
-``BuildConfig`` is not ported).
+Copy of ``kmer_id_tpu/config.py``; ``BuildConfig`` without the two fields
+nothing reads (``max_rep``: db/build.py's ``MAXREP``; ``exact_counts``).
 """
 
 from __future__ import annotations
@@ -51,3 +51,12 @@ class ClassifyConfig:
         }[variant]
         base.update(overrides)
         return cls(**base)
+
+
+@dataclass
+class BuildConfig:
+    """Probe-builder parameters (kmer_build_vf6.cpp constants)."""
+
+    max_probes_per_target: int = 100000  # MAXPROBES, kmer_build_vf6.cpp:41
+    min_entropy: float = 0.80  # :543
+    max_homopolymer: int = 11  # :524

@@ -32,6 +32,7 @@ KEY_BITS = 2 * KSIZE  # 60
 KEY_MASK = np.uint64((1 << KEY_BITS) - 1)
 
 INVALID = np.uint8(4)  # code for non-ACGT characters
+_BASES = "ACGT"
 
 def _make_lut(u_is_t: bool) -> np.ndarray:
     lut = np.full(256, INVALID, dtype=np.uint8)
@@ -116,6 +117,12 @@ def canonical_kmers(codes: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarr
     fwd = kF < kR
     keys = np.where(fwd, kF, kR)
     return keys, pos + KSIZE - 1, fwd
+
+
+def key_to_string(key: int) -> str:
+    """Decode a 60-bit key to its 30-char base string (MSB base first)."""
+    k = int(key)
+    return "".join(_BASES[(k >> (2 * (KSIZE - 1 - j))) & 3] for j in range(KSIZE))
 
 
 def split_key(keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

@@ -237,13 +237,21 @@ def _parse_probes_slow(path) -> ProbeRecords:
 def write_probes_text(records: ProbeRecords, path) -> None:
     """Emit probe rows in the reference CSV format (builder output parity).
 
-    The JAX package decodes keys in its native library (db/native) when it
-    can; the port keeps only a numpy decode of all keys at once, whose bytes
-    are the same."""
-    keys = np.asarray(records.keys, dtype=np.uint64)
-    shifts = np.array([2 * (KSIZE - 1 - j) for j in range(KSIZE)], dtype=np.uint64)
-    chars = np.frombuffer(b"ACGT", dtype=np.uint8)[(keys[:, None] >> shifts) & np.uint64(3)]
-    kstrs = np.ascontiguousarray(chars).view(f"S{KSIZE}").reshape(-1)
+    A plain-text file is written by the native library (db/native) when it
+    is built, and otherwise keys are decoded by it, or by numpy without it
+    (in place of the JAX package's per-key Python join): the bytes are the
+    same every way."""
+    from kmer_id_tpu_torch.db import native as kn
+
+    if kn.write_probes(path, records.keys, records.target, records.org,
+                       records.position, records.fstrand, records.count):
+        return
+    kstrs = kn.keys_to_strings(records.keys)
+    if kstrs is None:
+        keys = np.asarray(records.keys, dtype=np.uint64)
+        shifts = np.array([2 * (KSIZE - 1 - j) for j in range(KSIZE)], dtype=np.uint64)
+        chars = np.frombuffer(b"ACGT", dtype=np.uint8)[(keys[:, None] >> shifts) & np.uint64(3)]
+        kstrs = np.ascontiguousarray(chars).view(f"S{KSIZE}").reshape(-1)
     strand = np.where(records.fstrand, "F", "R")
     with _open_maybe_gz(path, "wt") as f:
         f.writelines(

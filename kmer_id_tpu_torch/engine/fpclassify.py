@@ -240,8 +240,9 @@ def _slot_nodes(rec, tinfo):
 
 class FpClassifier:
     """Fingerprint engine on one torch device, with the JAX engine's outer
-    API: ``new_seen`` / ``submit_batch`` / ``collect`` / ``process_batch`` /
-    ``process_long`` / ``process_long_many`` / ``ucount``.
+    API: ``new_seen`` / ``submit_batch`` / ``collect`` / ``collect_many`` /
+    ``process_batch`` / ``process_long`` / ``process_long_many`` /
+    ``ucount``.
 
     ``max_hits`` is the per-read verified-hit budget.  On a CUDA device with
     a Bloom-filtered DB it must lie in [1, ``KERNEL_MAX_HITS``] = [1, 32]:
@@ -308,6 +309,24 @@ class FpClassifier:
 
     def collect(self, seen, pending: PendingBatch):
         return self._finish_collect(seen, pending.packed.cpu().numpy(), pending)
+
+    def collect_many(self, seen, pendings: list):
+        """:meth:`collect` of several pending batches with one
+        device-to-host copy: their finals joined by one ``torch.cat`` and
+        fetched once, then :meth:`_finish_collect` per batch.  Returns
+        (seen, [finals, ...]) aligned with ``pendings``, each sliced to its
+        batch's rows."""
+        if len(pendings) == 1:
+            seen, finals = self.collect(seen, pendings[0])
+            return seen, [finals]
+        fetched = torch.cat([p.packed for p in pendings]).cpu().numpy()
+        out, off = [], 0
+        for p in pendings:
+            n = p.packed.shape[0]
+            seen, finals = self._finish_collect(seen, fetched[off : off + n], p)
+            out.append(finals)
+            off += n
+        return seen, out
 
     def process_batch(self, seen, batch: Batch):
         seen, pending = self.submit_batch(seen, batch)

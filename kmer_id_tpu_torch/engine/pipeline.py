@@ -3,9 +3,11 @@
 Port of ``load_db``, ``make_classifier``, ``SampleProcessor``,
 ``write_result``, ``run_nx``, ``load_jobs``, ``run_vf6`` and ``run_m3`` from
 ``kmer_id_tpu/engine/pipeline.py`` (which imports jax, so nothing of it is
-imported here).  Batches and long reads are classified and accounted in
-read order on the calling thread.  Under ``minalign > 0`` each batch is
-replayed read by read against the live ``gcount`` (engine/verify.py).
+imported here), with its overlap of host and device: a submitter and a
+collector thread, on CUDA streams of their own on a card
+(:class:`SampleProcessor`).  The multi-process branches wait for the
+multi-GPU port.  Under ``minalign > 0`` each batch is replayed read by read
+against the live ``gcount`` (engine/verify.py) on the calling thread.
 """
 
 from __future__ import annotations
@@ -13,11 +15,14 @@ from __future__ import annotations
 import json
 import os
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import ExitStack
 from dataclasses import dataclass, field
 from typing import Iterable, Optional, TextIO
 
 import numpy as np
+import torch
 
 from kmer_id_tpu_torch.config import ClassifyConfig
 from kmer_id_tpu_torch.core.taxonomy import Taxonomy
@@ -34,6 +39,7 @@ from kmer_id_tpu_torch.utils.logging import log
 from kmer_id_tpu_torch.utils.timing import StageTimers
 from kmer_id_tpu_torch.engine.classify import Classifier
 from kmer_id_tpu_torch.engine.fpclassify import FpClassifier
+from kmer_id_tpu_torch.ops.gate import ReadPlanes
 
 
 @dataclass
@@ -138,12 +144,33 @@ class SampleProcessor:
     accounted at their place in read order.  ``target_reads_out`` receives
     every read whose final is ``cfg.save_target`` (vf6 ``-target``).
 
-    Under ``cfg.minalign > 0`` (a legacy engine) the Python feed is forced:
-    the replay needs each read's untrimmed length and trim start, which only
-    the Python batcher's metadata carries.  Each short-read batch's
-    per-window detail is then replayed read by read on the host, aligning
-    hits against ``cfg.fadir``'s genomes while a target's live ``gcount`` is
-    below ``minalign``, and ucount comes from the replay.
+    The JAX driver's overlap of host and device, on two worker threads:
+
+    * the **submitter** (one worker, FIFO, at most 6 steps queued) runs
+      :meth:`_consume` / :meth:`_consume_native`: the engine's
+      ``submit_batch``, which marks ``seen``, while the calling thread
+      decodes ahead;
+    * the **collector** (one worker, at most ``pipeline_depth`` jobs in
+      flight) collects, replays candidate overflows, runs the long-read
+      lane and accounts, in read order, marking only ``seen_ovr``.  The
+      finals of ``collect_group`` batches come back in one transfer through
+      the engine's ``collect_many`` (4 when it has one, else 1); a long read
+      or a native batch with long rows flushes the group first.
+
+    On a card each worker launches on a stream of its own, and a batch's
+    submit is handed to the collector with an event its stream waits on.
+    :meth:`finish` waits for both, synchronises both streams and counts
+    ucount from ``max(seen, seen_ovr)``; an exception on either worker is
+    raised there (or by the next :meth:`feed`) once both workers are shut
+    down.
+
+    Under ``cfg.minalign > 0`` (a legacy engine) there are no workers:
+    everything runs on the calling thread, in read order.  The Python feed
+    is forced, since the replay needs each read's untrimmed length and trim
+    start, which only the Python batcher's metadata carries.  Each
+    short-read batch's per-window detail is replayed read by read on the
+    host, aligning hits against ``cfg.fadir``'s genomes while a target's
+    live ``gcount`` is below ``minalign``, and ucount comes from the replay.
     """
 
     def __init__(
@@ -163,6 +190,10 @@ class SampleProcessor:
         self.gcount = np.zeros(clf.num_targ, dtype=np.int64)
         self.reads = 0
         self.seen = clf.new_seen()
+        # the collector's own unique-k-mer set (overflow replays, long
+        # reads): each worker marks one, and a set union is exact as a
+        # max-merge at finish
+        self.seen_ovr = clf.new_seen()
         self.batcher = ReadBatcher(clf.batch_size, clf.max_len, u_is_t=cfg.u_is_t)
         if cfg.minalign > 0:
             use_native = False
@@ -172,6 +203,27 @@ class SampleProcessor:
             if self.native
             else None
         )
+        overlap = cfg.minalign == 0
+        self.pipeline_depth = 4  # collector jobs in flight
+        self.collect_group = 4 if hasattr(clf, "collect_many") else 1
+        self._group: list = []  # [(pending, batch, event)] awaiting a group job
+        self._inflight: deque = deque()  # the collector's futures, FIFO
+        self._sub_q: deque = deque()  # the submitter's futures, FIFO
+        self._submitter = self._collector = None
+        if overlap:
+            self._submitter = ThreadPoolExecutor(1, thread_name_prefix="kmer-submit")
+            self._collector = ThreadPoolExecutor(1, thread_name_prefix="kmer-collect")
+        self._sub_stream = self._col_stream = None
+        device = torch.device(clf.device)
+        if overlap and device.type == "cuda":
+            # seen, seen_ovr and the engine's tables were made on the
+            # calling thread's stream: both worker streams start after it
+            made = torch.cuda.current_stream(device)
+            self._sub_stream = torch.cuda.Stream(device)
+            self._col_stream = torch.cuda.Stream(device)
+            for stream, marks in ((self._sub_stream, self.seen), (self._col_stream, self.seen_ovr)):
+                stream.wait_stream(made)
+                marks.record_stream(stream)
         self.timers = StageTimers()
         self._t_start = time.monotonic()
         self._verify = None
@@ -188,7 +240,7 @@ class SampleProcessor:
     def feed(self, records: Iterable) -> None:
         for acc, seq, qual in records:
             for item in self.batcher.add(acc, seq, qual):
-                self._consume(item)
+                self._enqueue(self._consume, item)
 
     def feed_file(self, path, fmt: str | None = None) -> None:
         """Stream one read file (extension-dispatched, vf6:1133-1152; pass
@@ -196,7 +248,7 @@ class SampleProcessor:
         if self._feeder is not None:
             with self.timers.stage("decode+classify"):
                 for nb in self._feeder.feed_path(str(path), fmt=fmt):
-                    self._classify_native(nb)
+                    self._enqueue(self._consume_native, nb)
             return
         from kmer_id_tpu_torch.io import fastx
         from kmer_id_tpu_torch.io.native import detect_format
@@ -212,16 +264,26 @@ class SampleProcessor:
             self.feed(iters[fmt](str(path)))
 
     def finish(self) -> SampleResult:
-        if self._feeder is not None:
-            for nb in self._feeder.flush():
-                self._classify_native(nb)
-        for item in self.batcher.flush():
-            self._consume(item)
+        try:
+            if self._feeder is not None:
+                for nb in self._feeder.flush():
+                    self._enqueue(self._consume_native, nb)
+            for item in self.batcher.flush():
+                self._enqueue(self._consume, item)
+            self._drain_submits()
+            if self._submitter is not None:
+                self._submitter.shutdown(wait=True)
+            self._barrier()
+        finally:
+            self._shutdown()
         if self._verify is not None:
             ucount = self._verify["ucount"]
         else:
             with self.timers.stage("finalize"):
-                ucount = self.clf.ucount(self.seen)
+                for stream in (self._sub_stream, self._col_stream):
+                    if stream is not None:
+                        stream.synchronize()
+                ucount = self.clf.ucount(torch.maximum(self.seen, self.seen_ovr))
         wall = time.monotonic() - self._t_start
         classified = int(self.reads - (self.gcount[0] if len(self.gcount) else 0))
         log(
@@ -236,35 +298,154 @@ class SampleProcessor:
             wall_s=wall, stage_s=self.timers.summary(),
         )
 
+    # ------------------------------------------------------------ workers
+    @staticmethod
+    def _on_stream(stream, fn, *a):
+        """``fn(*a)`` with ``stream`` (on its device) as the thread's
+        current stream; a worker thread starts on device 0's default
+        stream."""
+        if stream is None:
+            return fn(*a)
+        with torch.cuda.device(stream.device), torch.cuda.stream(stream):
+            return fn(*a)
+
+    def _enqueue(self, fn, *a) -> None:
+        """Run a consume step on the submitter thread (FIFO, at most 6
+        queued), or inline without workers."""
+        if self._submitter is None:
+            fn(*a)
+            return
+        self._sub_q.append(self._submitter.submit(self._on_stream, self._sub_stream, fn, *a))
+        while len(self._sub_q) > 6:
+            self._result(self._sub_q.popleft())
+
+    def _result(self, fut) -> None:
+        """A submitter future's result, read on the calling thread; on an
+        exception both workers are shut down before it is raised."""
+        try:
+            fut.result()
+        except BaseException:
+            self._shutdown()
+            raise
+
+    def _drain_submits(self) -> None:
+        while self._sub_q:
+            self._result(self._sub_q.popleft())
+
+    def _shutdown(self) -> None:
+        """Stop both workers: queued steps are cancelled, running ones end
+        (the submitter first: its step may wait on the collector)."""
+        for ex in (self._submitter, self._collector):
+            if ex is not None:
+                ex.shutdown(wait=True, cancel_futures=True)
+
+    def _collect(self, fn, *a) -> None:
+        """Queue a collector job (inline without workers), then hold the
+        jobs in flight to ``pipeline_depth``."""
+        if self._collector is None:
+            fn(*a)
+            return
+        self._inflight.append(self._collector.submit(self._on_stream, self._col_stream, fn, *a))
+        while len(self._inflight) > self.pipeline_depth:
+            self._inflight.popleft().result()
+
+    def _submitted(self):
+        """An event after the submitter stream's work so far (None off the
+        card): the collector's stream waits on it before it reads."""
+        if self._sub_stream is None:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(self._sub_stream)
+        return ev
+
+    def _receive(self, pending, ev) -> None:
+        """On the collector: its stream waits for ``pending``'s submit, and
+        the device tensors ``pending`` holds are marked as used on that
+        stream, so the caching allocator does not hand their memory to the
+        submitter before the collector's work on them has run."""
+        if ev is None:
+            return
+        self._col_stream.wait_event(ev)
+        held = [pending.packed]
+        if isinstance(pending.codes, ReadPlanes):  # the legacy engine's rows
+            rows = pending.codes
+            held += [t for t in (rows.lengths, rows.packed, rows.exc, rows.codes) if t is not None]
+        for t in held:
+            t.record_stream(self._col_stream)
+
     # ------------------------------------------------------------ internals
     def _consume(self, item) -> None:
+        """Python-batcher path: a short-read batch joins the group, a long
+        read flushes the group and goes to the collector."""
         if self._verify is not None and isinstance(item, Batch):
             self._replay_verify(item)
         elif isinstance(item, LongRead):
-            self.seen, final = self.clf.process_long(self.seen, item)
-            self._account(int(final), item.meta)
+            self._flush_group()  # account order = read order
+            self._collect(self._long_job, item)
         else:
-            self.seen, finals = self.clf.process_batch(self.seen, item)
-            self._account_batch(finals[: item.n_rows], item.metas)
+            self.seen, pending = self.clf.submit_batch(self.seen, item)
+            self._group.append((pending, item, self._submitted()))
+            if len(self._group) >= self.collect_group:
+                self._flush_group()
 
-    def _classify_native(self, nb) -> None:
-        """A native batch: its short rows through the engine, its long rows
-        (placeholders of length 0 in the device batch) through the long-read
-        lane together, every row accounted in read order."""
+    def _consume_native(self, nb) -> None:
+        """A native batch: its short rows through the engine; with long rows
+        (placeholders of length 0 in the device batch) the group is flushed
+        and the batch collected alone with its long rows (:meth:`_drain_job`)."""
         batch = nb.batch
-        self.seen, finals = self.clf.process_batch(self.seen, batch)
+        self.seen, pending = self.clf.submit_batch(self.seen, batch)
+        ev = self._submitted()
         if not nb.long_rows:
-            self._account_batch(finals[: batch.n_rows], batch.metas)
+            self._group.append((pending, batch, ev))
+            if len(self._group) >= self.collect_group:
+                self._flush_group()
+        else:
+            self._flush_group()  # account order = read order
+            self._collect(self._drain_job, pending, ev, nb)
+
+    def _flush_group(self) -> None:
+        if self._group:
+            grp, self._group = self._group, []
+            self._collect(self._group_job, grp)
+
+    def _barrier(self) -> None:
+        """Wait for every queued collector job (order/exception barrier)."""
+        self._flush_group()
+        while self._inflight:
+            self._inflight.popleft().result()
+
+    def _group_job(self, grp) -> None:
+        for pending, _, ev in grp:
+            self._receive(pending, ev)
+        if len(grp) == 1 or not hasattr(self.clf, "collect_many"):
+            for pending, batch, _ in grp:
+                self.seen_ovr, finals = self.clf.collect(self.seen_ovr, pending)
+                self._account_batch(finals[: batch.n_rows], batch.metas)
             return
+        self.seen_ovr, finals_list = self.clf.collect_many(self.seen_ovr, [p for p, _, _ in grp])
+        for (_, batch, _), finals in zip(grp, finals_list):
+            self._account_batch(finals, batch.metas)
+
+    def _long_job(self, item: LongRead) -> None:
+        self.seen_ovr, final = self.clf.process_long(self.seen_ovr, item)
+        self._account(int(final), item.meta)
+
+    def _drain_job(self, pending, ev, nb) -> None:
+        """A native batch with long rows: its short rows' finals, its long
+        rows through the long-read lane together, every row accounted in
+        read order."""
+        self._receive(pending, ev)
+        self.seen_ovr, finals = self.clf.collect(self.seen_ovr, pending)
+        batch = nb.batch
         metas = batch.metas
         long_items = [LongRead(meta=None, codes=metas.seq_codes(i, self.cfg.u_is_t))
                       for i in nb.long_rows]
         if hasattr(self.clf, "process_long_many"):
-            self.seen, long_finals = self.clf.process_long_many(self.seen, long_items)
+            self.seen_ovr, long_finals = self.clf.process_long_many(self.seen_ovr, long_items)
         else:  # the legacy engine: one read at a time
             long_finals = []
             for item in long_items:
-                self.seen, f = self.clf.process_long(self.seen, item)
+                self.seen_ovr, f = self.clf.process_long(self.seen_ovr, item)
                 long_finals.append(f)
         final = finals[: batch.n_rows].tolist()
         for i, f in zip(nb.long_rows, long_finals):

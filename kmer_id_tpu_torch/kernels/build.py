@@ -6,7 +6,8 @@ ctypes.  The library is built at first use into ``build/kmer_id_tpu_torch/``
 at the repository root, keyed by a hash of its source and flags, so a fresh
 checkout builds it once and reuses it afterwards.  :func:`check_tensor`,
 :func:`ptr` and :func:`launch` are what every kernel wrapper in ``ops/``
-uses to check its arguments and call a library's C entry.
+uses to check its arguments and call a library's C entry, and
+:class:`LaunchCount` is each wrapper's count of its launches.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -24,6 +26,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kmer_id_tpu_torch")
+_BUILD_LOCK = threading.Lock()  # one build at a time per process
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -58,8 +61,14 @@ def build_many(names) -> dict:
 
     Returns {name: (library path, info)} where info holds the build seconds
     (0 when the library was already built) and the compiler's
-    ``-Xptxas -v`` report.
+    ``-Xptxas -v`` report.  Safe to call from several threads: the
+    pipeline's submitter and collector may both reach a kernel first.
     """
+    with _BUILD_LOCK:
+        return _build_many(names)
+
+
+def _build_many(names) -> dict:
     out, running = {}, {}
     t0 = time.perf_counter()
     for name in names:
@@ -160,3 +169,26 @@ def launch(fn, name: str, device, *args):
         err = fn(*args, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+class LaunchCount:
+    """A kernel wrapper's count of its launches: :meth:`add` where the
+    wrapper launches its kernel, :attr:`value` to read, :meth:`reset` to
+    zero.  A lock keeps ``add`` exact when the pipeline's submitter and
+    collector threads launch the same kernel."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._n = 0
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+    @property
+    def value(self) -> int:
+        return self._n

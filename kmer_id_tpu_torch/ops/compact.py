@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from kmer_id_tpu_torch.kernels.build import check_tensor, launch, load_compact, ptr
+from kmer_id_tpu_torch.kernels.build import LaunchCount, check_tensor, launch, load_compact, ptr
 
 SENT = 2**31 - 1
 MAX_EXTRAS = 2
@@ -97,11 +97,11 @@ def compact_ranks_cuda(cand, valid, pos, max_hits: int, extras=()):
     launch(load_compact().kmer_compact_ranks, "compact_ranks", device,
            ptr(cand), ptr(valid), ptr(pos), e_in[0], e_in[1], len(extras),
            ptr(pos_out), ptr(cand_out), ptr(n_out), e_out[0], e_out[1], b, c, max_hits)
-    compact_ranks_cuda.launches += 1
+    compact_ranks_cuda.launches.add()
     return pos_out, cand_out, n_out, tuple(extra_outs)
 
 
-compact_ranks_cuda.launches = 0
+compact_ranks_cuda.launches = LaunchCount()
 
 
 def compact_ranks(cand, valid, pos, max_hits: int, extras=()):

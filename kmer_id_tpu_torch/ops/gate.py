@@ -31,11 +31,10 @@ import numpy as np
 import torch
 
 from kmer_id_tpu_torch.core.codec import KSIZE
-from kmer_id_tpu_torch.kernels.build import check_tensor, launch, load_gate, ptr
+from kmer_id_tpu_torch.kernels.build import LaunchCount, check_tensor, launch, load_gate, ptr
 from kmer_id_tpu_torch.ops.compact import compact_ranks_plain
 from kmer_id_tpu_torch.ops.extract import extract_kmers, unpack_codes
 from kmer_id_tpu_torch.ops.lookup import bloom_pass
-from kmer_id_tpu_torch.ops.words import u32_tensor
 
 BLOOM_K = 12  # per-read budget of Bloom-passing windows
 
@@ -56,16 +55,20 @@ class ReadPlanes:
 
     @classmethod
     def from_batch(cls, batch, device, max_len: int) -> "ReadPlanes":
-        """An io/batch.Batch's rows on ``device``: its packed words and
-        exception list when it has them (the rows' width is the code
-        plane's, or ``max_len`` for a batch that ships none), else its code
-        plane."""
-        lengths = torch.from_numpy(np.ascontiguousarray(batch.lengths, np.int32)).to(device)
+        """An io/batch.Batch's rows on ``device``: its packed words (uint32
+        as int32 bit patterns) and exception list when it has them (the
+        rows' width is the code plane's, or ``max_len`` for a batch that
+        ships none), else its code plane.  Each array is a private copy;
+        to a card it goes from pinned host memory without blocking the
+        host (:func:`_ship`)."""
+        device = torch.device(device)
+        lengths = _ship(np.array(batch.lengths, np.int32, order="C"), device)
         if batch.packed is not None:
             width = batch.codes.shape[1] if batch.codes is not None else max_len
-            return cls(lengths, width, packed=u32_tensor(batch.packed, device),
-                       exc=torch.from_numpy(np.ascontiguousarray(batch.exc, np.int32)).to(device))
-        codes = torch.from_numpy(np.ascontiguousarray(batch.codes, np.uint8)).to(device)
+            packed = _ship(np.array(batch.packed, np.uint32, order="C").view(np.int32), device)
+            return cls(lengths, width, packed=packed,
+                       exc=_ship(np.array(batch.exc, np.int32, order="C"), device))
+        codes = _ship(np.array(batch.codes, np.uint8, order="C"), device)
         return cls(lengths, codes.shape[1], codes=codes)
 
     @property
@@ -75,6 +78,17 @@ class ReadPlanes:
     @property
     def device(self) -> torch.device:
         return self.lengths.device
+
+
+def _ship(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A C-order host array on ``device`` (on the CPU, a tensor sharing its
+    memory).  To a card it is copied into pinned memory and sent with
+    ``non_blocking=True`` on the current stream: the caching host allocator
+    keeps the pinned block until that copy has run."""
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def _code_plane(reads: ReadPlanes) -> torch.Tensor:
@@ -150,11 +164,11 @@ def window_gate_cuda(db, reads: ReadPlanes):
     launch(lib.kmer_window_gate, "window_gate", dev, *lead, ptr(bloom), nblk,
             db["fp_s4"] & 0xFFFFFFFF, db["fp_s5"] & 0xFFFFFFFF, BLOOM_K,
             ptr(wpos), ptr(whi), ptr(wlo), ptr(npass))
-    window_gate_cuda.launches += 1
+    window_gate_cuda.launches.add()
     return wpos, whi, wlo, npass
 
 
-window_gate_cuda.launches = 0
+window_gate_cuda.launches = LaunchCount()
 
 
 def extract_cuda(reads: ReadPlanes, fstrand: bool = False) -> dict:
@@ -172,11 +186,11 @@ def extract_cuda(reads: ReadPlanes, fstrand: bool = False) -> dict:
     launch(lib.kmer_window_extract, "window_extract", dev, *lead,
            ptr(out["hi"]), ptr(out["lo"]), ptr(out["valid"]),
            ptr(out["fstrand"]) if fstrand else None)
-    extract_cuda.launches += 1
+    extract_cuda.launches.add()
     return out
 
 
-extract_cuda.launches = 0
+extract_cuda.launches = LaunchCount()
 
 
 def window_gate(db, reads: ReadPlanes):

@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import torch
 
-from kmer_id_tpu_torch.kernels.build import check_tensor, launch, load_probe, ptr
+from kmer_id_tpu_torch.kernels.build import LaunchCount, check_tensor, launch, load_probe, ptr
 from kmer_id_tpu_torch.ops.compact import (
     SENT,
     compact_ranks,
@@ -188,11 +188,11 @@ def probe_verify_cuda(db, wpos, whi, wlo, max_hits: int, seen=None) -> dict:
             *salts, None if seen is None else ptr(seen), max_hits,
             *(ptr(out[n]) for n in ("cand", "ver", "tin", "tout", "depth", "t", "nh",
                                     "deepest", "dtgt", "consistent", "overflow")))
-    probe_verify_cuda.launches += 1
+    probe_verify_cuda.launches.add()
     return out
 
 
-probe_verify_cuda.launches = 0
+probe_verify_cuda.launches = LaunchCount()
 
 
 def probe_verify(db, wpos, whi, wlo, max_hits: int, seen=None) -> dict:

@@ -113,10 +113,10 @@ def test_budget_wider_than_plane():
 def test_cpu_tensors_take_the_plain_version():
     cand, valid, ex = _fixture(8, 16, 20, 0.1)
     args = _torch_args(cand, valid, ex)
-    before = compact_ranks_cuda.launches
+    before = compact_ranks_cuda.launches.value
     got = compact_ranks(*args[:3], 8, extras=args[3])
     want = compact_ranks_plain(*args[:3], 8, extras=args[3])
-    assert compact_ranks_cuda.launches == before
+    assert compact_ranks_cuda.launches.value == before
     for g, w in zip(got[:3] + got[3], want[:3] + want[3]):
         assert torch.equal(g, w)
 

@@ -40,9 +40,9 @@ def test_kernel_matches_plain_on_card(b, c, max_hits, density):
     ex = tuple(torch.from_numpy(r.integers(0, 2**32, size=(b, c), dtype=np.uint64)
                                 .astype(np.uint32).view(np.int32)).to(dev) for _ in range(2))
     for n_extra in (0, 1, 2):
-        before = compact_ranks_cuda.launches
+        before = compact_ranks_cuda.launches.value
         got = compact_ranks(cand, valid, pos, max_hits, extras=ex[:n_extra])
-        assert compact_ranks_cuda.launches == before + 1
+        assert compact_ranks_cuda.launches.value == before + 1
         want = compact_ranks_plain(cand, valid, pos, max_hits, extras=ex[:n_extra])
         torch.cuda.synchronize()
         for g, w in zip(got[:3] + got[3], want[:3] + want[3]):

@@ -271,7 +271,7 @@ def test_model_reads_bits_past_length_as_packed():
 def test_dispatch_on_cpu_uses_the_plain_version():
     bloom, s4, s5, _, _, forms = _world(5, 40, 96, (60, 97))
     db = _tdb(bloom, s4, s5)
-    before = (window_gate_cuda.launches, extract_cuda.launches)
+    before = (window_gate_cuda.launches.value, extract_cuda.launches.value)
     for reads in forms.values():
         for g, w in zip(window_gate(db, reads), window_gate_plain(db, reads)):
             assert torch.equal(g, w)
@@ -280,7 +280,7 @@ def test_dispatch_on_cpu_uses_the_plain_version():
         got, want = extract(reads, fstrand=True), extract_plain(reads, fstrand=True)
         assert set(got) == {"hi", "lo", "valid", "fstrand"}
         assert all(torch.equal(got[k], want[k]) for k in want)
-    assert (window_gate_cuda.launches, extract_cuda.launches) == before
+    assert (window_gate_cuda.launches.value, extract_cuda.launches.value) == before
     with pytest.raises(ValueError, match="CUDA"):
         window_gate_cuda(db, forms["packed"])
     with pytest.raises(ValueError, match="CUDA"):
@@ -301,9 +301,9 @@ def test_kernel_matches_plain_on_card(b, l, lens, form):
     codes, lengths = gate_rows(r, b, l, lens, bloom, s4, s5)
     reads = gate_forms(r, codes, lengths, "cuda")[form]
     db = {"bloom": u32_tensor(bloom, "cuda"), "fp_s4": s4, "fp_s5": s5}
-    before = window_gate_cuda.launches
+    before = window_gate_cuda.launches.value
     got = window_gate(db, reads)
-    assert window_gate_cuda.launches == before + 1
+    assert window_gate_cuda.launches.value == before + 1
     want = window_gate_plain(db, reads)
     gx, wx = extract(reads, fstrand=True), extract_plain(reads, fstrand=True)
     g3 = extract_cuda(reads)

@@ -8,8 +8,9 @@
   here with the port's own host modules: the five classify subcommands
   (``classify-nx``, ``classify-jobs``, ``classify-m3``, ``mitokmer``,
   ``readc``) with each engine, ``classify-m3 --profile``, ``pack-db``,
-  ``report-b10`` and ``report-c3``; each must exit 0, write its files and
-  leave no blocked module in ``sys.modules``.
+  ``report-b10``, ``report-c3`` and ``build-db`` in RAM and with
+  ``--spill``; each must exit 0, write its files and leave no blocked
+  module in ``sys.modules``.
 """
 
 import ast
@@ -162,6 +163,18 @@ def blocked_run(tmp_path_factory):
     shutil.copytree(mito, mito_legacy)
     (root / "refkey10.txt").write_text("target\tname\tcount\tuse\n" + "".join(
         f"{t}\tname{t}\t{t + 10}\t1\n" for t in range(NUM_TARG)))
+    fa = root / "fa"  # build-db: three genomes sharing a block, one outgroup
+    fa.mkdir()
+    shared, outg = seq(300), seq(200)
+    for acc, body in (("g1", seq(800) + shared + outg), ("g2", shared + seq(700)),
+                      ("g3", seq(900)), ("gout", seq(100) + outg)):
+        with gzip.open(fa / f"{acc}.fasta.gz", "wt") as f:
+            f.write(f">{acc}\n{body}\n")
+    for bd in ("bd", "bds"):
+        (root / bd).mkdir()
+        (root / bd / f"{bd}_data.txt").write_text("3\tg1\n4\tg2\n6\tg3\n")
+        (root / bd / f"{bd}_tree.txt").write_text("1\t2\n2\t3\n2\t4\n1\t5\n5\t6\n")
+        (root / bd / f"{bd}_filter.txt").write_text("gout\n")
 
     def classify(legacy):
         sfx, eng = ("_legacy", ["--engine", "legacy"]) if legacy else ("", [])
@@ -192,6 +205,9 @@ def blocked_run(tmp_path_factory):
                         str(root / "b10.csv")]),
         ("report-c3", ["report-c3", str(fq), str(mito / "mitochondria_refkey.txt"),
                        str(root / "c3.csv")]),
+        ("build-db", ["build-db", "-name", "bd", "-fadir", str(fa), "--root", str(root)]),
+        ("build-db --spill", ["build-db", "-name", "bds", "-fadir", str(fa), "--root", str(root),
+                              "--spill"]),
     ]
     out = subprocess.run(
         [sys.executable, "-c", _RUN.format(blocked=BLOCKED), json.dumps(runs)],
@@ -216,6 +232,8 @@ def blocked_run(tmp_path_factory):
         "pack-db": [root / "packed" / n for n in ("manifest.json", "cuckoo.npy", "keys.npy")],
         "report-b10": [root / "b10.csv"],
         "report-c3": [root / "c3.csv"],
+        "build-db": [root / "bd" / f"bd_{k}.txt" for k in ("probes", "count")],
+        "build-db --spill": [root / "bds" / f"bds_{k}.txt" for k in ("probes", "count")],
     })
     return json.loads(out.stdout.strip().splitlines()[-1]), files
 
@@ -224,7 +242,8 @@ CLASSIFY = ["classify-nx", "classify-jobs", "classify-m3", "mitokmer", "readc"]
 
 
 @pytest.mark.parametrize("cmd", CLASSIFY + [c + "_legacy" for c in CLASSIFY] + [
-    "classify-m3 --profile", "pack-db", "report-b10", "report-c3"])
+    "classify-m3 --profile", "pack-db", "report-b10", "report-c3", "build-db",
+    "build-db --spill"])
 def test_subcommand_runs_with_jax_and_jax_package_refused(blocked_run, cmd):
     result, files = blocked_run
     assert result["rcs"][cmd] == 0

@@ -4,8 +4,8 @@ package's CLI on copies of one directory of paired FASTQ.gz samples:
 reference simulator (tests/refsim.py), with the fingerprint engine and with
 ``--engine legacy``.  Also: the port never imports jax, both feed paths
 agree, the resume manifest, the per-read and per-batch accounting agree,
-``--profile`` writes a trace, and what is not ported (``build-db``, the mesh
-and multi-host flags) refuses to run.
+``--profile`` writes a trace, and what is not ported (the mesh and
+multi-host flags) refuses to run.
 """
 
 import gzip
@@ -194,7 +194,7 @@ def test_account_batch_equals_per_read_account():
     from kmer_id_tpu_torch.engine.pipeline import SampleProcessor
 
     class _Clf:
-        num_targ, batch_size, max_len = 9, 8, 64
+        num_targ, batch_size, max_len, device = 9, 8, 64, "cpu"
 
         def new_seen(self):
             return None
@@ -267,12 +267,10 @@ def test_profile_writes_a_trace(world, tmp_path):
 
 def test_unported_paths_refuse(world, tmp_path):
     """What the port does not have refuses on every entry point instead of
-    running elsewhere: ``build-db``, a mesh of more than one device and the
-    multi-host flags."""
+    running elsewhere: a mesh of more than one device and the multi-host
+    flags."""
     from kmer_id_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["build-db", "-name", "x", "-fadir", str(tmp_path)])
     base = ["classify-nx", str(tmp_path), "--db-dir", str(world["dbdir"]), "--device", "cpu"]
     for flags in (["--mesh-data", "2"], ["--mesh-db", "4"], ["--num-processes", "2"],
                   ["--coordinator", "localhost:1234"], ["--process-id", "0"]):

@@ -303,13 +303,13 @@ def test_dispatch_on_cpu_uses_the_plain_version(base):
     _, fpdb, _ = base
     tdb, _, wpos, whi, wlo = _world(base, 2, "mixed", b=40)
     windows = _windows(wpos, whi, wlo)
-    before = probe_verify_cuda.launches
+    before = probe_verify_cuda.launches.value
     seen_a, seen_b = _seen(fpdb.n_slots), _seen(fpdb.n_slots)
     got = probe_verify(tdb, *windows, 32, seen_a)
     want = probe_verify_plain(tdb, *windows, 32, seen_b)
     assert all(torch.equal(got[k], want[k]) for k in want)
     assert torch.equal(seen_a, seen_b)
-    assert probe_verify_cuda.launches == before
+    assert probe_verify_cuda.launches.value == before
     with pytest.raises(ValueError, match="CUDA"):
         probe_verify_cuda(tdb, *windows, 32)
 
@@ -324,9 +324,9 @@ def test_kernel_matches_plain_on_card(base, world, b, max_hits):
     tdb, _, wpos, whi, wlo = _world(base, b + max_hits, world, b=b, device="cuda")
     windows = _windows(wpos, whi, wlo, "cuda")
     seen_k, seen_p = _seen(fpdb.n_slots, "cuda"), _seen(fpdb.n_slots, "cuda")
-    before = probe_verify_cuda.launches
+    before = probe_verify_cuda.launches.value
     got = probe_verify(tdb, *windows, max_hits, seen_k)
-    assert probe_verify_cuda.launches == before + 1
+    assert probe_verify_cuda.launches.value == before + 1
     want = probe_verify_plain(tdb, *windows, max_hits, seen_p)
     torch.cuda.synchronize()
     bad, _ = probe_mismatch(got, want, fpdb.n_slots, (seen_k, seen_p))

@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
 """The PyTorch port's classify-nx engine in two checkouts, on one card, in turns.
 
-    python3 tools/engine_ab.py BEFORE_DIR AFTER_DIR [--probes N] [--reads N]
+    python3 tools/engine_ab.py BEFORE_DIR AFTER_DIR [--probes N] [--reads N] [--pairs N]
 
 Makes chip_smoke.py's classify-nx DB (random canonical probes on 5,982
-targets, from its seed) and one paired sample once, with the functions of
+targets, from its seed), one paired sample and a FASTA job of 2-50 kb
+contigs (a planted probe about every 5 kb) once, with the functions of
 AFTER_DIR's chip_smoke.py, into ``build/engine_ab/`` of this checkout.  Then
 runs each checkout in a fresh process, in the order before, after, after,
-before.  Each process imports that checkout's ``kmer_id_tpu_torch`` and
+before, ``--pairs`` times over (one by default).  Each process imports that checkout's ``kmer_id_tpu_torch`` and
 calls that checkout's own ``chip_smoke.profile_phase`` (8 batches of
 8192 x 160 under torch.profiler), and counts the device launches per batch
 from the profiler window that phase opens.  It then runs that checkout's
-``classify-nx`` CLI on the sample.  Prints one JSON line per arm: engine wall
-ms/batch, device busy ms/batch, device launches per batch, and end-to-end
-reads/s, with the card's name and power limit.  Needs one CUDA card.
+``classify-nx`` CLI on the sample, then the long-read lane: that
+checkout's ``process_long_many`` on the decoded contigs (groups of 2048 x
+512, after a warm-up call), and last the batch shipping alone: that
+checkout's ``ReadPlanes.from_batch`` of one decoded nx batch, 200 calls to
+one synchronize.  Prints one JSON line per arm: engine wall ms/batch,
+device busy ms/batch, device launches per batch, end-to-end reads/s, the
+lane's Mbase/s and ms per shipped batch, with the card's name and power
+limit.  Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ def load_smoke(checkout: str):
     return mod
 
 
-def make_world(after: str, n_probes: int, n_reads: int) -> None:
+def make_world(after: str, n_probes: int, n_reads: int, lane_mbase: int) -> None:
     cs = load_smoke(after)
     sys.path.insert(0, after)
     rng = np.random.default_rng(cs.SEED)
@@ -56,6 +62,12 @@ def make_world(after: str, n_probes: int, n_reads: int) -> None:
     plant = np.concatenate([cs._key_chars(keys[sel]), cs._key_chars(cs._revcomp(keys[sel]))])
     for mate, tag in (("R1", "a"), ("R2", "b")):
         cs.write_reads(rng, os.path.join(fq, f"s_{mate}_tr.fastq.gz"), n_reads, plant, tag)
+    seqs, total = [], 0
+    while total < lane_mbase * 1_000_000:
+        n = int(rng.integers(2000, 50_001))
+        seqs.append(cs.contig(rng, n, plant, n // 5000))
+        total += n
+    cs.write_fasta(os.path.join(WORK, "lane.fasta"), seqs, "t")
     print(f"world: {len(keys)} probes, sample of {2 * n_reads} reads, made in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -96,7 +108,61 @@ def arm(checkout: str) -> dict:
     return {"checkout": checkout, "wall_ms_per_batch": prof["wall_ms_per_batch"],
             "busy_ms_per_batch": prof["busy_ms_per_batch"],
             "launches_per_batch": sum(e.count for e in dev) / n_batches,
-            "reads": m["reads"], "reads_per_s": m["reads_per_s"]}
+            "reads": m["reads"], "reads_per_s": m["reads_per_s"],
+            "lane_mbase_per_s": lane(cs, db_dir, cache),
+            "ship_ms_per_batch": ship(cs, os.path.join(fq, "s_R1_tr.fastq.gz"))}
+
+
+def ship(cs, fastq: str, calls: int = 200) -> float:
+    """ms per ``ReadPlanes.from_batch`` of one nx batch to the card, this
+    checkout's (host work and the copies, to one synchronize)."""
+    import itertools
+
+    import torch
+
+    from kmer_id_tpu_torch.io.batch import ReadBatcher
+    from kmer_id_tpu_torch.io.fastx import iter_fastq_gz
+    from kmer_id_tpu_torch.ops.gate import ReadPlanes
+
+    rb = ReadBatcher(cs.BATCH, cs.MAX_LEN, u_is_t=False)
+    recs = itertools.islice(iter_fastq_gz(fastq), cs.BATCH)
+    batch = ([it for rec in recs for it in rb.add(*rec)] + list(rb.flush()))[0]
+    dev = torch.device("cuda")
+    for _ in range(20):
+        ReadPlanes.from_batch(batch, dev, cs.MAX_LEN)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        ReadPlanes.from_batch(batch, dev, cs.MAX_LEN)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def lane(cs, db_dir: str, cache: str) -> float:
+    """Mbase/s of this checkout's process_long_many on the decoded contigs
+    of ``lane.fasta`` (the second of two calls)."""
+    import torch
+
+    from kmer_id_tpu_torch.config import ClassifyConfig
+    from kmer_id_tpu_torch.core.codec import CODE_LUT_U
+    from kmer_id_tpu_torch.engine.pipeline import load_db, make_classifier
+    from kmer_id_tpu_torch.io.batch import LongRead
+    from kmer_id_tpu_torch.io.fastx import iter_fasta_plain
+
+    db = load_db(os.path.join(db_dir, "bData10.txt"), os.path.join(db_dir, "btree_10.txt"),
+                 os.path.join(db_dir, "probes10.txt.gz"), num_targ=cs.NUM_TARG, cache_dir=cache)
+    cfg = ClassifyConfig.preset("vf6", batch_size=cs.JOB_BATCH, max_len=cs.JOB_MAX_LEN)
+    clf = make_classifier(db, cfg, cache_dir=cache, device="cuda")
+    items = [LongRead(meta=None, codes=CODE_LUT_U[np.frombuffer(seq.encode(), np.uint8)])
+             for _, seq, _ in iter_fasta_plain(os.path.join(WORK, "lane.fasta"))]
+    bases = sum(len(it.codes) for it in items)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clf.process_long_many(clf.new_seen(), items)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return bases / 1e6 / secs
 
 
 def card_line() -> str:
@@ -111,6 +177,8 @@ def main() -> int:
     ap.add_argument("after", nargs="?")
     ap.add_argument("--probes", type=int, default=33_000_000)
     ap.add_argument("--reads", type=int, default=250_000, help="reads per mate file")
+    ap.add_argument("--pairs", type=int, default=1, help="rounds of before, after, after, before")
+    ap.add_argument("--lane-mbase", type=int, default=20, help="Mbase of contigs for the lane")
     ap.add_argument("--arm", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.arm:
@@ -123,9 +191,9 @@ def main() -> int:
         return 1
     before, after = (os.path.abspath(d) for d in (args.before, args.after))
     card = card_line()
-    make_world(after, args.probes, args.reads)
+    make_world(after, args.probes, args.reads, args.lane_mbase)
     for name, d in (("before", before), ("after", after), ("after", after),
-                    ("before", before)):
+                    ("before", before)) * args.pairs:
         out = subprocess.run([sys.executable, os.path.abspath(__file__), "--arm", d],
                              capture_output=True, text=True)
         if out.returncode != 0:
