@@ -110,17 +110,17 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-KERNELS = ("window_gate", "window_extract", "probe_verify", "compact_ranks")
+KERNELS = ("window_gate", "window_extract", "probe_verify", "probe_hits", "compact_ranks")
 
 
 def _wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from kmer_id_tpu_torch.ops.compact import compact_ranks_cuda
     from kmer_id_tpu_torch.ops.gate import extract_cuda, window_gate_cuda
-    from kmer_id_tpu_torch.ops.probe import probe_verify_cuda
+    from kmer_id_tpu_torch.ops.probe import probe_hits_cuda, probe_verify_cuda
 
     return dict(zip(KERNELS, (window_gate_cuda, extract_cuda, probe_verify_cuda,
-                              compact_ranks_cuda)))
+                              probe_hits_cuda, compact_ranks_cuda)))
 
 
 def reset_counts() -> None:
@@ -294,12 +294,12 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def gate_bloom(rng):
-    """A random block-Bloom table of BLOOM_BLOCKS rows with a quarter of its
+def gate_bloom(rng, blocks=BLOOM_BLOCKS):
+    """A random block-Bloom table of ``blocks`` rows with a quarter of its
     bits set (a random window passes with probability 1/256, about the
     8-keys-per-block filter's rate), and two salts."""
-    words = (rng.integers(0, 2**32, size=(BLOOM_BLOCKS, 4), dtype=np.uint64)
-             & rng.integers(0, 2**32, size=(BLOOM_BLOCKS, 4), dtype=np.uint64))
+    words = (rng.integers(0, 2**32, size=(blocks, 4), dtype=np.uint64)
+             & rng.integers(0, 2**32, size=(blocks, 4), dtype=np.uint64))
     return words.astype(np.uint32), int(rng.integers(1, 2**32)), int(rng.integers(1, 2**32))
 
 
@@ -387,6 +387,7 @@ def gate_phase(device="cuda") -> dict:
 
     from kmer_id_tpu_torch.ops.gate import (
         BLOOM_K,
+        SHARD_BLOOM_K,
         extract_cuda,
         extract_plain,
         window_gate_cuda,
@@ -447,6 +448,39 @@ def gate_phase(device="cuda") -> dict:
                     f"npass max {int(npass.max())}, {int((npass > 0).sum())} rows passing); "
                     f"device kernel {k_ms} ms, plain {p_ms} ms, bound {b_ms} ms ({b_by})")
                 report[(mode, name, form)] = (k_ms, p_ms, b_ms, b_by)
+
+    # a rank of the sharded engine's grid: gate mode to SHARD_BLOOM_K windows
+    # on one shard's filter (db = 2: half the nx DB's blocks), nx rows
+    name, b, l, lens = GATE_SHAPES[0]
+    k = SHARD_BLOOM_K
+    sbloom, s4, s5 = gate_bloom(rng, BLOOM_BLOCKS // 2)
+    codes, lengths = gate_rows(rng, b, l, lens, sbloom, s4, s5)
+    db = {"bloom": u32_tensor(sbloom, device), "fp_s4": s4, "fp_s5": s5}
+    for form, reads in gate_forms(rng, codes, lengths, device).items():
+        got_g = window_gate_cuda(db, reads, k)
+        want_g = window_gate_plain(db, reads, k)
+        torch.cuda.synchronize()
+        for what, g, w in zip(("wpos", "whi", "wlo", "npass"), got_g, want_g):
+            err = int((g.long() - w.long()).abs().max())
+            max_err = max(max_err, err)
+            if not torch.equal(g, w):
+                raise AssertionError(f"gate.cu != plain at k={k} {name} {form}: {what} "
+                                     f"(max err {err})")
+        npass = want_g[3]
+        if int(npass.max()) <= k or not bool(((npass > 0) & (npass <= k)).any()):
+            raise AssertionError(f"gate rows at k={k}: no row past the budget or under it")
+        valid = int(extract_plain(reads)["valid"].sum())
+        in_bytes = lengths.nbytes + (
+            reads.packed.numel() * 4 + reads.exc.numel() * 4 if form == "packed"
+            else reads.codes.numel())
+        b_ms, b_by = bound(in_bytes + 16 * valid + b * (3 * k + 1) * 4,
+                           GATE_OPS_PER_WINDOW * b * (l - 29))
+        k_ms = device_ms(lambda: window_gate_cuda(db, reads, k))
+        p_ms = device_ms(lambda: window_gate_plain(db, reads, k))
+        say(f"gate.cu gate k={k} {name} [{b}x{l}] {form}, shard filter of {len(sbloom)} "
+            f"blocks: bit-equal (npass max {int(npass.max())}); device kernel {k_ms} ms, plain "
+            f"{p_ms} ms, bound {b_ms} ms ({b_by})")
+        report[("gate24", name, form)] = (k_ms, p_ms, b_ms, b_by)
     return {"max_abs_err": max_err, "times": report}
 
 
@@ -458,10 +492,12 @@ def gate_phase(device="cuda") -> dict:
 # default budget
 PROBE_SHAPES = (("nx", BATCH, 32), ("lane", JOB_BATCH, 8), ("m3", JOB_BATCH, 32))
 PROBE_WORLDS = ("mixed", "empty", "saturated")
+SHARD_RANKS = ((2, 0), (2, 1), (4, 3))  # (db axis, db rank) of the shard mode's checks
 PROBE_OPS_PER_WINDOW = 120  # three hashes, 24 fingerprint compares, ranks, verify
 PROBE_FIELDS = ("cand", "ver", "tin", "tout", "depth", "t", "nh", "deepest", "dtgt",
                 "consistent", "overflow")
 VER_MASKED = ("tin", "tout", "depth")  # compared where ver only
+HIT_OUTPUTS = ("posk", "cand", "tgt", "tin", "td", "ver", "ncand")  # shard mode's
 
 
 def probe_kinds(rng, b, world):
@@ -610,6 +646,27 @@ def probe_tables(fpdb, crafted, tinfo, device) -> dict:
     return db
 
 
+def shard_cut(crafted, dbp: int, k: int) -> dict:
+    """Db rank ``k`` of ``dbp``'s part of crafted tables, as
+    parallel/fpsharded.py ``shard_tables`` lays it out: its L1 block of
+    fptab, the whole fptab2, and its local rec (its L1 rows, then every L2
+    row)."""
+    nb1 = len(crafted["fptab"])
+    nbloc = nb1 // dbp
+    rec = crafted["rec"]
+    return {"fptab": crafted["fptab"][k * nbloc : (k + 1) * nbloc],
+            "fptab2": crafted["fptab2"],
+            "rec": np.concatenate([rec[k * nbloc * 8 : (k + 1) * nbloc * 8], rec[nb1 * 8 :]])}
+
+
+def shard_probe_tables(fpdb, crafted, tinfo, dbp: int, k: int, device) -> dict:
+    """Db rank ``k`` of ``dbp``'s probe tables on ``device`` (:func:`shard_cut`
+    of crafted copies, with ``nb1``, the global L1 bucket count)."""
+    db = probe_tables(fpdb, shard_cut(crafted, dbp, k), tinfo, device)
+    db["nb1"] = len(crafted["fptab"])
+    return db
+
+
 def probe_mismatch(got: dict, want: dict, n_slots: int, seen=None) -> tuple[list, int]:
     """(names of the outputs that differ, max abs error) between two probe +
     verify results: every output bit for bit, tin/tout/depth only where
@@ -627,6 +684,24 @@ def probe_mismatch(got: dict, want: dict, n_slots: int, seen=None) -> tuple[list
         if g.numel():
             err = max(err, int((g.long() - w.long()).abs().max()))
         if g.shape != w.shape or not torch.equal(g, w):
+            bad.append(k)
+    return bad, err
+
+
+def hits_mismatch(got: dict, want: dict, n_slots: int, seen=None) -> tuple[list, int]:
+    """(names of the outputs that differ, max abs error) between two shard
+    mode results (ops/probe.py ``probe_hits_*``): every output bit for bit,
+    and ``seen`` (a pair of tensors) over the slot ids."""
+    import torch
+
+    bad, err = [], 0
+    pairs = [(k, got[k], want[k]) for k in HIT_OUTPUTS]
+    if seen is not None:
+        pairs.append(("seen", seen[0][:n_slots], seen[1][:n_slots]))
+    for k, g, w in pairs:
+        if g.numel() and g.shape == w.shape:
+            err = max(err, int((g.long() - w.long()).abs().max()))
+        if g.shape != w.shape or not torch.equal(g.long(), w.long()):
             bad.append(k)
     return bad, err
 
@@ -662,28 +737,43 @@ def probe_phase(db, device="cuda") -> dict:
     saturated (:func:`probe_kinds`).  Device times (CUDA graphs) of the
     kernel and of :func:`probe_plain_full_tier` beside the bound, and per
     call times (host work included) of the kernel and probe_verify_plain.
+    Then the shard mode (probe_hits_cuda against probe_hits_plain, bit for
+    bit, ``seen`` included) at nx [8192x24] with sh 8, for ranks 0 and 1 of
+    db = 2 and rank 3 of db = 4 (SHARD_RANKS), in the same worlds, on the
+    ranks' parts of the crafted tables, device times beside the bound.
     Returns the numbers for the kernels line."""
     import torch
 
     from kmer_id_tpu_torch.core.taxonomy import Taxonomy
     from kmer_id_tpu_torch.db.fpdb import build_tinfo, load_fpdb
     from kmer_id_tpu_torch.ops.compact import SENT, interleave_planes
-    from kmer_id_tpu_torch.ops.gate import BLOOM_K
-    from kmer_id_tpu_torch.ops.lookup import fp_candidates
-    from kmer_id_tpu_torch.ops.probe import probe_verify_cuda, probe_verify_plain
+    from kmer_id_tpu_torch.ops.gate import BLOOM_K, SHARD_BLOOM_K
+    from kmer_id_tpu_torch.ops.lookup import fp_candidates, fp_hashes
+    from kmer_id_tpu_torch.ops.probe import (
+        probe_hits_cuda,
+        probe_hits_plain,
+        probe_verify_cuda,
+        probe_verify_plain,
+    )
+    from kmer_id_tpu_torch.parallel.fpsharded import SHARD_HITS
 
     keys, _, parent, _, cache, _ = db
     rng = np.random.default_rng(SEED + 4)
     fp = load_fpdb(cache)
     tinfo = build_tinfo(Taxonomy(np.asarray(parent, np.int32)))
     t0 = time.perf_counter()
-    worlds, plants = {}, []
+    worlds, shard_worlds, plants = {}, {}, []
     for shape, b, mh in PROBE_SHAPES:
         for world in PROBE_WORLDS:
             wpos, whi, wlo, pl = probe_windows(rng, fp, keys, b, BLOOM_K, P,
                                                probe_kinds(rng, b, world))
             worlds[(shape, world)] = (mh, wpos, whi, wlo)
             plants.append(pl)
+    for world in PROBE_WORLDS:  # the shard mode's windows: the gate's 24 per read
+        wpos, whi, wlo, pl = probe_windows(rng, fp, keys, BATCH, SHARD_BLOOM_K, P,
+                                           probe_kinds(rng, BATCH, world))
+        shard_worlds[world] = (wpos, whi, wlo)
+        plants.append(pl)
     crafted = craft_tables(rng, fp, len(tinfo),
                            {k: np.concatenate([pl[k] for pl in plants]) for k in plants[0]})
     tdb = probe_tables(fp, crafted, tinfo, device)
@@ -729,7 +819,57 @@ def probe_phase(db, device="cuda") -> dict:
             f"full tier {p_dev} ms, bound {b_ms} ms ({b_by}); per call kernel {k_call} ms, "
             f"plain {p_call} ms")
         report[(shape, world)] = (k_dev, p_dev, b_ms, b_by, k_call, p_call)
-    return {"max_abs_err": max_err, "times": report}
+
+    # shard mode (kmer_probe_hits): ranks 0 and 1 of db = 2 (rank 1 holds no
+    # L2) and rank 3 of db = 4, on their parts of the same crafted tables
+    del tdb
+    sh = SHARD_HITS  # the engine's min(8, max_hits) at the default max_hits
+    hits_err, hits_report = 0, {}
+    for dbp, k in SHARD_RANKS:
+        sdb = shard_probe_tables(fp, crafted, tinfo, dbp, k, device)
+        nbloc = len(crafted["fptab"]) // dbp
+        b0, own2 = k * nbloc, k == 0
+        n_slots = (nbloc + len(crafted["fptab2"])) * 8
+        for world, (wpos, whi, wlo) in shard_worlds.items():
+            wp, wh, wl = t(wpos), t(whi.view(np.int32)), t(wlo.view(np.int32))
+            seen_k, seen_p = (torch.zeros(n_slots + 1, dtype=torch.int8, device=device)
+                              for _ in range(2))
+            got = probe_hits_cuda(sdb, wp, wh, wl, sh, b0, nbloc, own2, seen_k)
+            want = probe_hits_plain(sdb, wp, wh, wl, sh, b0, nbloc, own2, seen_p)
+            torch.cuda.synchronize()
+            bad, err = hits_mismatch(got, want, n_slots, (seen_k, seen_p))
+            hits_err = max(hits_err, err)
+            if bad:
+                raise AssertionError(f"probe.cu shard mode != plain at db {k}/{dbp} {world}: "
+                                     f"{bad} (max err {err})")
+            valid = wp < SENT
+            n_valid, n_ver = int(valid.sum()), int(want["ver"].sum())
+            b1 = fp_hashes(wh, wl, sdb["nb1"], sdb["fp_s1"], sdb["fp_s2"], sdb["fp_s3"])[0]
+            in_range = int((valid & (b1 >= b0) & (b1 < b0 + nbloc)).sum())
+            ncand = want["ncand"]
+            placed = int(ncand.clamp(max=sh).sum())
+            if world != "empty" and not (n_ver > 0 and int(ncand.max()) > sh):
+                raise AssertionError(f"shard world db {k}/{dbp} {world}: no hit or no row past "
+                                     f"the budget")
+            # windows read once; an L1 row per window in the rank's range, two
+            # L2 rows per window on the rank owning L2; a rec row per placed
+            # candidate, a tinfo row and a seen byte per verified hit; the
+            # plane and the counts written once
+            nbytes = (wp.numel() * 12 + 16 * in_range + (32 * n_valid if own2 else 0)
+                      + 12 * placed + 9 * n_ver + wp.shape[0] * (sh * 21 + 4))
+            b_ms, b_by = bound(nbytes, PROBE_OPS_PER_WINDOW * n_valid)
+            k_dev = device_ms(lambda: probe_hits_cuda(sdb, wp, wh, wl, sh, b0, nbloc, own2, seen_k))
+            p_dev = device_ms(lambda: probe_hits_plain(sdb, wp, wh, wl, sh, b0, nbloc, own2,
+                                                       seen_p))
+            say(f"probe.cu shard mode db {k}/{dbp} {world} [{BATCH}x{SHARD_BLOOM_K}] sh={sh}: "
+                f"bit-equal ({n_valid} windows, {in_range} in range, {int(ncand.sum())} "
+                f"candidates, {placed} placed, {n_ver} verified, {int((ncand > sh).sum())} rows "
+                f"past the budget); device kernel {k_dev} ms, plain {p_dev} ms, bound {b_ms} ms "
+                f"({b_by})")
+            hits_report[(f"db{k}/{dbp}", world)] = (k_dev, p_dev, b_ms, b_by)
+        del sdb
+    return {"max_abs_err": max_err, "times": report, "hits_max_abs_err": hits_err,
+            "hits_times": hits_report}
 
 
 # ---------------------------------------------------------- engine phase
@@ -2123,6 +2263,355 @@ def build_phase(device, work=WORK, name="syn", n_reads=6000) -> dict:
             "spill_s": got["spill"][1]}
 
 
+# ------------------------------------------------------------- grid phase
+
+GRID_TIMEOUT_S = 420  # a rank process's whole life; its peers are killed then
+GRID_GRACE_S = 30  # after a rank fails, how long its peers get to end
+FP_GRID_KERNELS = ("window_gate", "probe_hits")
+LEGACY_GRID_KERNELS = ("window_extract", "compact_ranks")
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def grid_db(db_dir, cache):
+    """The nx phase's DB as the CLI loads it (packed and fingerprint
+    caches): (LoadedDB, FpDB)."""
+    from kmer_id_tpu_torch.engine.pipeline import load_db, load_or_build_fpdb
+
+    db = load_db(os.path.join(db_dir, "bData10.txt"), os.path.join(db_dir, "btree_10.txt"),
+                 os.path.join(db_dir, "probes10.txt.gz"), num_targ=NUM_TARG, cache_dir=cache)
+    return db, load_or_build_fpdb(db, cache)
+
+
+def sample_dir(work, name, fq, samples) -> str:
+    """A fresh directory of links to the nx phase's FASTQ.gz files of
+    ``samples``."""
+    d = os.path.join(work, name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    for s in samples:
+        for mate in ("R1", "R2"):
+            f = f"{s}_{mate}_tr.fastq.gz"
+            os.symlink(os.path.join(fq, f), os.path.join(d, f))
+    return d
+
+
+def toy_grid_world():
+    """The 2 x 2 grid's world (the JAX package's multi-chip dry run): the
+    toy DB of 100,000 probes, its two batches of 1024 x 256 (two
+    probe-dense rows: the Bloom budget, the candidate budget and the
+    replay), a 2,000-base long read.  Returns (packed, taxonomy, FpDB,
+    batches, long reads)."""
+    from kmer_id_tpu_torch.db.fpdb import build_fpdb
+    from kmer_id_tpu_torch.io.batch import LongRead
+
+    dense_rows = (5, 1024 - 3)
+    packed, tax, codes, lengths, genome = toy_world(
+        num_probes=100_000, num_targ=256, batch=1024, max_len=256, dense_rows=dense_rows,
+        long_len=2000)
+    return (packed, tax, build_fpdb(packed, tax), toy_batches(codes, lengths, dense_rows, 100_000),
+            [LongRead(meta=None, codes=genome)])
+
+
+def toy_grid_run(clf, batches, longs) -> dict:
+    """Finals of the toy batches, long finals and ucount through ``clf``."""
+    seen = clf.new_seen()
+    finals = []
+    for bt in batches:
+        seen, f = clf.process_batch(seen, bt)
+        finals.append(np.asarray(f).tolist())
+    seen, lf = clf.process_long_many(seen, longs)
+    return {"finals": finals, "long": [int(x) for x in lf],
+            "ucount": np.asarray(clf.ucount(seen)).tolist()}
+
+
+def grid_profile(device, run, nbs: int) -> dict:
+    """``run()`` (a sample through SampleProcessor) under torch.profiler,
+    with the host time of its submit steps and collector jobs and of
+    the grid's collectives (Grid._psum, Grid._gather) taken apart: host ms
+    per batch of each (the collectives' time is also inside submit and
+    collect), and this process's device busy time (the union of its device
+    intervals) and its share of the profiled wall."""
+    import threading
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kmer_id_tpu_torch.engine.pipeline import SampleProcessor
+    from kmer_id_tpu_torch.parallel.mesh import Grid
+
+    host, lock = {}, threading.Lock()
+
+    def timed(name, fn):
+        def step(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                with lock:
+                    host[name] = host.get(name, 0.0) + time.perf_counter() - t
+        return step
+
+    points = ((SampleProcessor, "_consume_native", "submit"),
+              (SampleProcessor, "_group_job", "collect"),
+              (SampleProcessor, "_drain_job", "collect"),
+              (Grid, "_psum", "collectives"), (Grid, "_gather", "collectives"))
+    saved = [(cls, name, getattr(cls, name)) for cls, name, _ in points]
+    cuda = torch.device(device).type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    try:
+        for cls, name, label in points:
+            setattr(cls, name, timed(label, getattr(cls, name)))
+        t0 = time.perf_counter()
+        with profile(activities=acts) as prof:
+            run()
+            sync(device)
+        wall = time.perf_counter() - t0
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if cuda and not dev:
+        raise AssertionError("grid profile: the profiler saw no device activity")
+    busy = _union_ms((e.time_range.start, e.time_range.end) for e in dev)
+    return {"profiled_wall_s": wall, "device_busy_ms": busy,
+            "busy_share": busy / (wall * 1e3),
+            **{f"{k}_ms_per_batch": v * 1e3 / nbs for k, v in sorted(host.items())}}
+
+
+def grid_rank(spec: dict) -> int:
+    """One rank of a grid that shares this card with its peers over gloo
+    (``python3 chip_smoke.py --grid-rank SPEC``): the task of ``spec`` on
+    the sharded engine, its kernel launches counted from 0 just before it,
+    the result written to ``spec["out"]``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from kmer_id_tpu_torch.config import ClassifyConfig
+    from kmer_id_tpu_torch.engine.pipeline import run_nx
+    from kmer_id_tpu_torch.parallel import ShardedFpClassifier, make_mesh
+    from kmer_id_tpu_torch.parallel.distributed import health_check, initialize
+
+    dev = torch.device(spec["device"])
+    initialize(spec["coord"], spec["n"], spec["rank"], dev, backend="gloo")
+    h = health_check(dev)
+    if not h["ok"]:
+        raise AssertionError(f"rank {spec['rank']}: health check failed: {h}")
+    grid = make_mesh(data=spec["dp"], db=spec["dbp"], device=dev)
+    out = {"rank": spec["rank"], "health": h}
+    t0 = time.perf_counter()
+    if spec["task"] == "nx":
+        db, fp = grid_db(spec["db_dir"], spec["cache"])
+        b, l = spec["batch"], spec["max_len"]
+        clf = ShardedFpClassifier(db.packed, db.taxonomy, grid, b, l, fpdb=fp)
+        out["setup_s"] = time.perf_counter() - t0
+        cfg = ClassifyConfig.preset("nx", num_targ=NUM_TARG, batch_size=b, max_len=l)
+        grid.barrier()
+        reset_counts()
+        run_nx(spec["fq"], db, cfg, clf=clf, metrics_path=spec["metrics"], device=dev)
+        out["launches"] = read_counts()
+        grid.barrier()
+        out["profile"] = grid_profile(dev, lambda: run_nx(spec["fq_profiled"], db, cfg, clf=clf),
+                                      spec["profiled_batches"])
+    else:  # the toy world at engine level
+        packed, tax, fpdb, batches, longs = toy_grid_world()
+        clf = ShardedFpClassifier(packed, tax, grid, 1024, 256, fpdb=fpdb)
+        out["setup_s"] = time.perf_counter() - t0
+        reset_counts()
+        out.update(toy_grid_run(clf, batches, longs))
+        out["launches"] = read_counts()
+    sync(dev)
+    out["modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "kmer_id_tpu"))
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn_grid(spec: dict, n: int, work) -> list:
+    """Starts ``n`` ranks of ``spec`` (:func:`grid_rank`), each on this card
+    over gloo, and returns their results in rank order.  Raises when a rank
+    fails or outlives GRID_TIMEOUT_S; once one has failed, the rest get
+    GRID_GRACE_S to end, and every rank still running is killed."""
+    coord = f"127.0.0.1:{free_port()}"
+    procs, logs, outs = [], [], []
+    for r in range(n):
+        outs.append(os.path.join(work, f"{spec['task']}_rank{r}.json"))
+        logs.append(open(os.path.join(work, f"{spec['task']}_rank{r}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--grid-rank",
+             json.dumps({**spec, "coord": coord, "n": n, "rank": r, "out": outs[r]})],
+            cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT))
+    t0, failed_at = time.monotonic(), None
+    try:
+        while any(p.poll() is None for p in procs):
+            if failed_at is None and any(p.poll() not in (None, 0) for p in procs):
+                failed_at = time.monotonic()
+            now = time.monotonic()
+            if now - t0 > GRID_TIMEOUT_S or (failed_at and now - failed_at > GRID_GRACE_S):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(logs[r].name) as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"grid {spec['task']} rank {r} of {n} exited {p.returncode}:\n"
+                                 f"{tail}")
+    res = []
+    for path in outs:
+        with open(path) as f:
+            res.append(json.load(f))
+    for r in res:
+        if r["modules"]:
+            raise AssertionError(f"grid rank {r['rank']} imported {r['modules']}")
+    return res
+
+
+def sum_counts(ranks) -> dict:
+    return {k: sum(r["launches"][k] for r in ranks) for k in KERNELS}
+
+
+def grid_phase(device, nx, work=WORK) -> dict:
+    """The sharded engines (parallel/) on grids of ranks, with the nx
+    phase's DB and samples: a 1 x 1 grid over NCCL in this process (both
+    engines; the small sample's files equal the single-device CLI's, which
+    equal RefSim; the big sample timed with the fingerprint engine); a 1 x 2
+    grid of two ranks sharing this card over gloo (files equal, big sample
+    timed); a 2 x 2 grid of four ranks on this card at engine level on the
+    toy world, equal to the single-device FpClassifier on the card.  Each
+    timed big sample runs again under the profiler (:func:`grid_profile`,
+    on every rank).  Every fingerprint grid launched window_gate and
+    probe_hits on every rank, the legacy grid window_extract and
+    compact_ranks."""
+    import torch
+    import torch.distributed as dist
+
+    from kmer_id_tpu_torch.config import ClassifyConfig
+    from kmer_id_tpu_torch.engine.fpclassify import FpClassifier
+    from kmer_id_tpu_torch.engine.pipeline import run_nx
+    from kmer_id_tpu_torch.parallel import ShardedClassifier, ShardedFpClassifier, make_mesh
+
+    device = f"cuda:{torch.cuda.current_device()}" if device == "cuda" else device
+    cuda = torch.device(device).type == "cuda"
+    fq = os.path.join(work, "fastq")
+    db_dir, cache = nx["db"][3:5]
+    batch, max_len = nx["batch"], nx["max_len"]
+    nbs = 2 * -(-nx["reads"] // 2 // batch)  # the big sample's batches: two mates of reads / 2
+    want = {k: v for k, v in nx["outputs"].items() if k.startswith("small_")}
+    cfg = ClassifyConfig.preset("nx", num_targ=NUM_TARG, batch_size=batch, max_len=max_len)
+    out = {"launches": {}}
+
+    def check_files(d, label):
+        got = {k: v for k, v in sample_outputs(d).items() if k.startswith("small_")}
+        if got != want:
+            raise AssertionError(f"grid {label}: small sample files != the single-device CLI's")
+
+    def metrics(path):
+        with open(path) as f:
+            return {r["sample"]: r for r in map(json.loads, f)}["big"]
+
+    # 1 x 1 over NCCL, in this process (gloo in a rehearsal on the CPU)
+    dist.init_process_group("nccl" if cuda else "gloo", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        x = torch.ones(1, dtype=torch.int32, device=device)
+        dist.all_reduce(x)
+        grid = make_mesh(data=1, db=1, device=device)
+        if grid.backend != ("nccl" if cuda else "gloo") or int(x) != 1:
+            raise AssertionError(f"1 x 1 grid: backend {grid.backend}, all_reduce {int(x)}")
+        t0 = time.perf_counter()
+        db, fp = grid_db(db_dir, cache)
+        clf = ShardedFpClassifier(db.packed, db.taxonomy, grid, batch, max_len, fpdb=fp)
+        setup = time.perf_counter() - t0
+        d = sample_dir(work, "grid_1x1", fq, ("small", "big"))
+        m = os.path.join(work, "grid_1x1.jsonl")
+        reset_counts()
+        run_nx(d, db, cfg, clf=clf, metrics_path=m, device=device)
+        out["launches"]["grid_nx_1x1"] = read_counts()
+        check_files(d, "1 x 1 fingerprint")
+        out["1x1"] = {**metrics(m), "setup_s": setup}
+        big = sample_dir(work, "grid_1x1_profiled", fq, ("big",))
+        out["1x1"]["profile"] = grid_profile(device, lambda: run_nx(big, db, cfg, clf=clf),
+                                             nbs)
+        del clf
+        d = sample_dir(work, "grid_1x1_legacy", fq, ("small",))
+        clf = ShardedClassifier(db.packed, db.taxonomy, grid, batch, max_len)
+        reset_counts()
+        run_nx(d, db, cfg, clf=clf, device=device)
+        out["launches"]["grid_nx_legacy_1x1"] = read_counts()
+        check_files(d, "1 x 1 legacy")
+        del clf, db, fp
+    finally:
+        dist.destroy_process_group()
+    say(f"grid 1 x 1 (NCCL, in process): both engines' small sample files equal the "
+        f"single-device CLI's (= RefSim); fingerprint big sample {out['1x1']['reads']} reads in "
+        f"{out['1x1']['wall_s']} s = {out['1x1']['reads_per_s']} reads/s (set-up "
+        f"{setup:.1f} s); again under the profiler: {out['1x1']['profile']}")
+
+    # 1 x 2: two ranks sharing this card over gloo
+    d = sample_dir(work, "grid_1x2", fq, ("small", "big"))
+    m = os.path.join(work, "grid_1x2.jsonl")
+    big = sample_dir(work, "grid_1x2_profiled", fq, ("big",))
+    ranks = spawn_grid({"task": "nx", "dp": 1, "dbp": 2, "device": device, "fq": d,
+                        "metrics": m, "db_dir": db_dir, "cache": cache, "batch": batch,
+                        "max_len": max_len, "fq_profiled": big, "profiled_batches": nbs},
+                       2, work)
+    check_files(d, "1 x 2")
+    per_rank = {"grid_nx_1x2": ranks}
+    out["launches"]["grid_nx_1x2"] = sum_counts(ranks)
+    out["1x2"] = {**metrics(m), "setup_s": max(r["setup_s"] for r in ranks),
+                  "profile": [r["profile"] for r in ranks]}
+    say(f"grid 1 x 2 (two ranks sharing one card, gloo): small sample files equal the "
+        f"single-device CLI's; big sample {out['1x2']['reads']} reads in {out['1x2']['wall_s']} "
+        f"s = {out['1x2']['reads_per_s']} reads/s (set-up {out['1x2']['setup_s']:.1f} s per rank, "
+        f"together); again under the profiler, by rank: {out['1x2']['profile']}")
+
+    # 2 x 2: four ranks sharing this card over gloo, at engine level
+    packed, tax, fpdb, batches, longs = toy_grid_world()
+    single = toy_grid_run(FpClassifier(packed, tax, batch_size=1024, max_len=256, fpdb=fpdb,
+                                       device=device), batches, longs)
+    ranks = spawn_grid({"task": "toy", "dp": 2, "dbp": 2, "device": device}, 4, work)
+    per_rank["grid_toy_2x2"] = ranks
+    for r in ranks:
+        got = {k: r[k] for k in ("finals", "long", "ucount")}
+        if got != single:
+            bad = [k for k in single if got[k] != single[k]]
+            raise AssertionError(f"grid 2 x 2 rank {r['rank']}: {bad} != the single-device "
+                                 f"engine's")
+    if sum(single["ucount"]) <= 0 or min(single["finals"][0][i] for i in (5, 1021)) <= 0:
+        raise AssertionError("grid 2 x 2: no hits, or a dense read unresolved")
+    out["launches"]["grid_toy_2x2"] = sum_counts(ranks)
+    say(f"grid 2 x 2 (four ranks sharing one card, gloo), toy world: finals of 2 batches, the "
+        f"long read's final and ucount equal the single-device engine's on every rank")
+
+    for path, counts in out["launches"].items():
+        kernels = LEGACY_GRID_KERNELS if "legacy" in path else FP_GRID_KERNELS
+        for k in kernels:
+            if counts[k] <= 0:
+                raise AssertionError(f"the {path} path launched {k} no time")
+        for r in per_rank.get(path, []):
+            if any(r["launches"][k] <= 0 for k in kernels):
+                raise AssertionError(f"{path}: rank {r['rank']} launched {r['launches']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2164,6 +2653,9 @@ def main() -> int:
     pr = probe_phase(nx["db"])
     say(f"phase probe: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    gd = grid_phase("cuda", nx)
+    say(f"phase grid: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     clf = nx_classifier("cuda", nx)
     ov = overlap_phase("cuda", nx, clf)
     say(f"phase overlap: {time.perf_counter() - t0:.1f} s")
@@ -2190,7 +2682,8 @@ def main() -> int:
     fp_paths = {"nx": nx["launches"], "jobs": jobs["launches"], "m3": m3["launches"],
                 "nx_overlap": ov["launches"], "nx_stages": st["launches"],
                 "build_db_jobs": bd["launches"]}
-    paths = {**fp_paths, **{f"{p}_legacy": r["launches"] for p, r in lg.items()}}
+    paths = {**fp_paths, **{f"{p}_legacy": r["launches"] for p, r in lg.items()},
+             **gd["launches"]}
     by_kernel = {k: {path: n[k] for path, n in paths.items()} for k in KERNELS}
     for k in ("window_gate", "probe_verify"):
         for path in fp_paths:
@@ -2232,6 +2725,12 @@ def main() -> int:
         f"(batches, depth, s), files equal RefSim's")
     say(f"build-db on the host ({card} for the classify): {bd['probes']} probes, in RAM "
         f"{bd['in_ram_s']} s, --spill {bd['spill_s']} s")
+    for g, label in (("1x1", "1 x 1 grid over NCCL"),
+                     ("1x2", "1 x 2 grid of two ranks sharing one card over gloo")):
+        say(f"{label} on {card} (batch {BATCH}, max_len {MAX_LEN}, {nx['n_probes']} probes): "
+            f"nx big sample {gd[g]['reads']} reads in {gd[g]['wall_s']} s = "
+            f"{gd[g]['reads_per_s']} reads/s; engine set-up {gd[g]['setup_s']} s; under the "
+            f"profiler (per rank: host ms per batch, device busy): {gd[g]['profile']}")
     say(f"kernel launches by path: {by_kernel}")
 
     def entry(name, source, replaces, times, max_err, shapes):
@@ -2254,16 +2753,20 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("window_gate", gate_src, "kmer_id_tpu/ops/compact.py:101",
               gr["times"][("gate", "nx", "packed")], gr["max_abs_err"],
-              {f"{n} {f}": shape_times(t) for (m, n, f), t in gr["times"].items()
-               if m == "gate"}),
+              {f"{n} {f}" + (" k=24" if m == "gate24" else ""): shape_times(t)
+               for (m, n, f), t in gr["times"].items() if m in ("gate", "gate24")}),
         entry("window_extract", gate_src, "kmer_id_tpu/ops/extract.py:34",
               gr["times"][("extract", "nx", "packed")], gr["max_abs_err"],
               {f"{m} {n} {f}": shape_times(t) for (m, n, f), t in gr["times"].items()
-               if m != "gate"}),
+               if m.startswith("extract")}),
         entry("probe_verify", "kmer_id_tpu_torch/csrc/probe.cu",
               "kmer_id_tpu/ops/compact.py:101", pr["times"][("nx", "mixed")],
               pr["max_abs_err"],
               {f"{s} {w}": shape_times(t) for (s, w), t in pr["times"].items()}),
+        entry("probe_hits", "kmer_id_tpu_torch/csrc/probe.cu",
+              "kmer_id_tpu/parallel/fpsharded.py:324", pr["hits_times"][("db0/2", "mixed")],
+              pr["hits_max_abs_err"],
+              {f"{r} {w}": shape_times(t) for (r, w), t in pr["hits_times"].items()}),
         entry("compact_ranks", "kmer_id_tpu_torch/csrc/compact.cu",
               "kmer_id_tpu/ops/compact.py:101", kr["times"]["legacy_nx"], kr["max_abs_err"],
               {name: shape_times(t) for name, t in kr["times"].items()}),
@@ -2277,4 +2780,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--grid-rank"]:
+        sys.exit(grid_rank(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -41,6 +41,21 @@
 //   verified), whose lane broadcasts its slot, tin and target; __all_sync
 //   gives the consistency test.
 //
+// Shard mode (kmer_probe_hits) is the same pass for one rank of the
+// sharded engine's (data x db) grid: the shard's part of local_hits
+// (kmer_id_tpu/parallel/fpsharded.py:304-346, whose two compactions are
+// the Pallas kernel's calls at :289 and :324).  The rank holds the L1
+// buckets [b0, b0 + nbloc) of the global table (nb1 buckets, whose mask the
+// L1 hash takes) and the whole L2; a window's L1 candidate counts only when
+// its bucket lies in that range, its L2 candidates only on the rank that
+// owns L2 (db rank 0).  Slot ids are local: L1 (b1 - b0) * 8 + i, L2
+// nbloc * 8 + c * 8 + s.  It writes the rank's narrow hit plane at the
+// first sh ranks (posk: the window position of a verified hit, kSent
+// elsewhere; cand; tgt, tin and td = (tout & 0xFFFFFF) | (depth << 24) of
+// verified hits, 0 elsewhere; ver), the per-read candidate count ncand,
+// and the seen marks; the per-read summary comes after the grid's merge.
+// An out-of-range window reads no L1 row.
+//
 // Plain C interface (bound with ctypes): the caller allocates the outputs,
 // the launch goes on the caller's stream, and the return value is
 // cudaGetLastError() after the launch (or cudaErrorInvalidValue for
@@ -244,6 +259,133 @@ __global__ void __launch_bounds__(kWarps * 32) probe_verify_kernel(const Params 
   }
 }
 
+struct ShardParams {
+  const int32_t* wpos;  // [rows, k] window positions, kSent past the last
+  const uint32_t* whi;  // [rows, k] key words
+  const uint32_t* wlo;
+  const uint4* fptab;   // [nbloc] the rank's L1 buckets
+  const uint4* fptab2;  // [nb2] L2 buckets
+  const uint32_t* rec;  // [(nbloc + nb2) * 8, 3] local slots
+  const int32_t* tinfo; // [n_nodes, 2] (node, tout) by tin
+  int8_t* seen;         // [>= local slots] or null
+  int32_t* posk;        // [rows, sh] outputs
+  int32_t* cand;
+  int32_t* tgt;
+  int32_t* tin;
+  int32_t* td;
+  uint8_t* ver;
+  int32_t* ncand;       // [rows]
+  int rows, k, sh, n_nodes, own2;
+  uint32_t nb1_mask, nb2_mask, b0, nbloc;
+  uint32_t s1, s2, s3, s4, s5;
+};
+
+__global__ void __launch_bounds__(kWarps * 32) probe_hits_kernel(const ShardParams p) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= p.rows) return;  // the whole warp: one read per warp
+  const size_t in0 = static_cast<size_t>(row) * p.k;
+  bool live = false;
+  int32_t pos = kSent;
+  uint32_t hi = 0, lo = 0;
+  if (lane < p.k) {
+    pos = p.wpos[in0 + lane];
+    live = pos < kSent;
+    hi = p.whi[in0 + lane];
+    lo = p.wlo[in0 + lane];
+  }
+  const uint32_t bl = (fp_mix(hi, lo, p.s1, p.s2) & p.nb1_mask) - p.b0;
+  const bool inr = bl < p.nbloc;  // b0 <= b1 < b0 + nbloc (unsigned wrap)
+  const uint32_t m = fp_mix(hi ^ 0x6A09E667u, lo, p.s3, p.s1);
+  uint32_t fp = (m ^ (m >> 16)) & 0xFFFFu;
+  if (fp == 0) fp = 1;
+  const uint32_t c1 = fp_mix(hi, lo, p.s4, p.s5) & p.nb2_mask;
+  const uint32_t c2 = fp_mix(lo, hi, p.s5, p.s4) & p.nb2_mask;
+  uint4 brow[kPlanes] = {};
+  const bool l1 = live && inr, l2 = live && p.own2 != 0;
+  if (l1) brow[0] = __ldg(p.fptab + bl);
+  if (l2) {
+    brow[1] = __ldg(p.fptab2 + c1);
+    brow[2] = __ldg(p.fptab2 + c2);
+  }
+  const uint32_t bucket[kPlanes] = {bl, p.nbloc + c1, p.nbloc + c2};
+  bool valid[kPlanes];
+  uint32_t slot[kPlanes];
+#pragma unroll
+  for (int q = 0; q < kPlanes; ++q) {
+    const int s = bucket_match(brow[q], fp);
+    valid[q] = (q == 0 ? l1 : l2) && s >= 0;
+    slot[q] = bucket[q] * 8u + static_cast<uint32_t>(s < 0 ? 0 : s);
+  }
+  valid[2] = valid[2] && c2 != c1;
+
+  // ranks in (window, plane) order
+  const unsigned below = (1u << lane) - 1u;
+  int rank[kPlanes];
+  int r = 0, ncand = 0;
+#pragma unroll
+  for (int q = 0; q < kPlanes; ++q) {
+    const unsigned bal = __ballot_sync(kFull, valid[q]);
+    r += __popc(bal & below);
+    ncand += __popc(bal);
+  }
+#pragma unroll
+  for (int q = 0; q < kPlanes; ++q) {
+    rank[q] = r;
+    r += valid[q] ? 1 : 0;
+  }
+
+  // verify the placed candidates: every rec load made before any compare
+  bool placed[kPlanes];
+  uint32_t w0[kPlanes], w1[kPlanes], w2[kPlanes];
+#pragma unroll
+  for (int q = 0; q < kPlanes; ++q) {
+    placed[q] = valid[q] && rank[q] < p.sh;
+    w0[q] = w1[q] = w2[q] = 0;
+    if (placed[q]) {
+      const uint32_t* rr = p.rec + static_cast<size_t>(slot[q]) * 3;
+      w0[q] = __ldg(rr);
+      w1[q] = __ldg(rr + 1);
+      w2[q] = __ldg(rr + 2);
+    }
+  }
+  const size_t out0 = static_cast<size_t>(row) * p.sh;
+#pragma unroll
+  for (int q = 0; q < kPlanes; ++q) {
+    if (!placed[q]) continue;
+    const bool ver = w0[q] == hi && w1[q] == lo;
+    const size_t o = out0 + rank[q];
+    int node = 0, tin = 0, td = 0;
+    if (ver) {
+      tin = static_cast<int>(w2[q] & 0xFFFFFFu);
+      int tout = 0;
+      if (tin < p.n_nodes) {
+        node = __ldg(p.tinfo + 2 * static_cast<size_t>(tin));
+        tout = __ldg(p.tinfo + 2 * static_cast<size_t>(tin) + 1);
+      }
+      td = static_cast<int>((static_cast<uint32_t>(tout) & 0xFFFFFFu) | (w2[q] & 0xFF000000u));
+      if (p.seen != nullptr) p.seen[slot[q]] = 1;
+    }
+    p.posk[o] = ver ? pos : kSent;
+    p.cand[o] = static_cast<int32_t>(slot[q]);
+    p.tgt[o] = node;
+    p.tin[o] = tin;
+    p.td[o] = td;
+    p.ver[o] = ver ? 1 : 0;
+  }
+  const int placed_n = ncand < p.sh ? ncand : p.sh;
+  for (int j = placed_n + lane; j < p.sh; j += 32) {
+    const size_t o = out0 + j;
+    p.posk[o] = kSent;
+    p.cand[o] = 0;
+    p.tgt[o] = 0;
+    p.tin[o] = 0;
+    p.td[o] = 0;
+    p.ver[o] = 0;
+  }
+  if (lane == 0) p.ncand[row] = ncand;
+}
+
 }  // namespace
 
 // `fptab` [nb1, 4] and `fptab2` [nb2, 4] uint32, 16-byte aligned, row counts
@@ -306,5 +448,67 @@ extern "C" int kmer_probe_verify(const int32_t* wpos, const uint32_t* whi,
   const dim3 grid((rows + kWarps - 1) / kWarps);
   const dim3 block(kWarps * 32);
   probe_verify_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Shard mode.  `fptab` [nbloc, 4] (the rank's L1 buckets [b0, b0 + nbloc)
+// of nb1) and `fptab2` [nb2, 4] uint32, 16-byte aligned; nb1 and nb2 powers
+// of two, b0 + nbloc <= nb1 and (nbloc + nb2) * 8 < 2^31; `rec`
+// [(nbloc + nb2) * 8, 3]; `tinfo` [n_nodes, 2]; `seen` may be null; own2 is
+// 1 on the rank that owns L2.  1 <= k <= 32 windows per read and
+// 1 <= sh <= 32 output ranks.
+extern "C" int kmer_probe_hits(const int32_t* wpos, const uint32_t* whi,
+                               const uint32_t* wlo, int rows, int k,
+                               const uint32_t* fptab, uint32_t nb1, uint32_t b0,
+                               uint32_t nbloc, const uint32_t* fptab2,
+                               uint32_t nb2, int own2, const uint32_t* rec,
+                               const int32_t* tinfo, int n_nodes, uint32_t s1,
+                               uint32_t s2, uint32_t s3, uint32_t s4,
+                               uint32_t s5, int8_t* seen, int sh,
+                               int32_t* posk, int32_t* cand, int32_t* tgt,
+                               int32_t* tin, int32_t* td, uint8_t* ver,
+                               int32_t* ncand, void* stream) {
+  const bool pow2 = nb1 != 0 && nb2 != 0 && (nb1 & (nb1 - 1)) == 0 &&
+                    (nb2 & (nb2 - 1)) == 0;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(fptab) |
+                         reinterpret_cast<uintptr_t>(fptab2)) & 15) == 0;
+  if (rows < 0 || k < 1 || k > 32 || sh < 1 || sh > 32 || !pow2 || !aligned ||
+      nbloc == 0 || static_cast<uint64_t>(b0) + nbloc > nb1 ||
+      (static_cast<uint64_t>(nbloc) + nb2) * 8 > 0x7FFFFFFFull)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
+  ShardParams p = {};
+  p.wpos = wpos;
+  p.whi = whi;
+  p.wlo = wlo;
+  p.fptab = reinterpret_cast<const uint4*>(fptab);
+  p.fptab2 = reinterpret_cast<const uint4*>(fptab2);
+  p.rec = rec;
+  p.tinfo = tinfo;
+  p.seen = seen;
+  p.posk = posk;
+  p.cand = cand;
+  p.tgt = tgt;
+  p.tin = tin;
+  p.td = td;
+  p.ver = ver;
+  p.ncand = ncand;
+  p.rows = rows;
+  p.k = k;
+  p.sh = sh;
+  p.n_nodes = n_nodes;
+  p.own2 = own2;
+  p.nb1_mask = nb1 - 1;
+  p.nb2_mask = nb2 - 1;
+  p.b0 = b0;
+  p.nbloc = nbloc;
+  p.s1 = s1;
+  p.s2 = s2;
+  p.s3 = s3;
+  p.s4 = s4;
+  p.s5 = s5;
+  const dim3 grid((rows + kWarps - 1) / kWarps);
+  const dim3 block(kWarps * 32);
+  probe_hits_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,9 +5,12 @@ Port of ``load_db``, ``make_classifier``, ``SampleProcessor``,
 ``kmer_id_tpu/engine/pipeline.py`` (which imports jax, so nothing of it is
 imported here), with its overlap of host and device: a submitter and a
 collector thread, on CUDA streams of their own on a card
-(:class:`SampleProcessor`).  The multi-process branches wait for the
-multi-GPU port.  Under ``minalign > 0`` each batch is replayed read by read
-against the live ``gcount`` (engine/verify.py) on the calling thread.
+(:class:`SampleProcessor`).  Under ``minalign > 0`` each batch is replayed
+read by read against the live ``gcount`` (engine/verify.py) on the calling
+thread.  On a grid of more than one rank (the sharded engines of
+``parallel/``, one process per device) every rank runs the same sample loop over
+the same stream in the same order, with no worker threads (the engine
+takes the rank's rows of each batch), and rank 0 alone writes the files.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Iterable, Optional, TextIO
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from kmer_id_tpu_torch.config import ClassifyConfig
 from kmer_id_tpu_torch.core.taxonomy import Taxonomy
@@ -107,22 +111,40 @@ def make_classifier(db: LoadedDB, cfg: ClassifyConfig, cache_dir: str | None = N
     ``cache_dir``, and the legacy engine where that one refuses the DB."""
     if cfg.minalign > 0 or cfg.engine != "fp":
         return Classifier(db.packed, db.taxonomy, cfg.batch_size, cfg.max_len, device=device)
-    from kmer_id_tpu_torch.db.fpdb import build_fpdb, load_fpdb, save_fpdb
-
-    fp = None
-    if cache_dir:
-        fp = load_fpdb(cache_dir)
-        if fp is not None and fp.slot_idx.max(initial=-1) >= len(db.packed):
-            fp = None  # stale cache from a different DB
-    if fp is None:
-        fp = build_fpdb(db.packed, db.taxonomy)
-        if cache_dir:
-            save_fpdb(fp, cache_dir)
+    fp = load_or_build_fpdb(db, cache_dir)
     try:
         return FpClassifier(db.packed, db.taxonomy, cfg.batch_size, cfg.max_len,
                             fpdb=fp, device=device)
     except ValueError:
         return Classifier(db.packed, db.taxonomy, cfg.batch_size, cfg.max_len, device=device)
+
+
+def load_or_build_fpdb(db: LoadedDB, cache_dir: str | None = None):
+    """The fingerprint tables of ``db``: read from ``cache_dir`` when a
+    cache of this DB is there, else built (and written there)."""
+    from kmer_id_tpu_torch.db.fpdb import build_fpdb, load_fpdb, save_fpdb
+
+    fp = load_fpdb(cache_dir) if cache_dir else None
+    if fp is not None and fp.slot_idx.max(initial=-1) >= len(db.packed):
+        fp = None  # stale cache from a different DB
+    if fp is None:
+        fp = build_fpdb(db.packed, db.taxonomy)
+        if cache_dir:
+            save_fpdb(fp, cache_dir)
+    return fp
+
+
+def world_size() -> int:
+    """Ranks in this process's torch.distributed group (1 without one)."""
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def is_main_process() -> bool:
+    """True on the rank that writes the files (rank 0; always without a
+    process group): every rank runs the same sample loop, since the
+    engines' collectives need it, but only this one writes result and
+    read files and the resume manifest."""
+    return world_size() == 1 or dist.get_rank() == 0
 
 
 @dataclass
@@ -164,6 +186,14 @@ class SampleProcessor:
     raised there (or by the next :meth:`feed`) once both workers are shut
     down.
 
+    On a grid of more than one rank (a sharded engine of ``parallel/``)
+    there are no workers either, and no groups: every rank submits every
+    batch, of which the engine ships only the rank's rows (its packed words
+    and exception list cut and re-based, ``parallel/mesh.py:slice_batch``),
+    its collect returns the whole batch's finals on every rank, and every
+    rank calls the collectives in the same order.  Long reads run on
+    the grid too.
+
     Under ``cfg.minalign > 0`` (a legacy engine) there are no workers:
     everything runs on the calling thread, in read order.  The Python feed
     is forced, since the replay needs each read's untrimmed length and trim
@@ -203,9 +233,9 @@ class SampleProcessor:
             if self.native
             else None
         )
-        overlap = cfg.minalign == 0
-        self.pipeline_depth = 4  # collector jobs in flight
-        self.collect_group = 4 if hasattr(clf, "collect_many") else 1
+        overlap = cfg.minalign == 0 and world_size() == 1
+        self.pipeline_depth = 4 if overlap else 0  # collector jobs in flight
+        self.collect_group = 4 if hasattr(clf, "collect_many") and overlap else 1
         self._group: list = []  # [(pending, batch, event)] awaiting a group job
         self._inflight: deque = deque()  # the collector's futures, FIFO
         self._sub_q: deque = deque()  # the submitter's futures, FIFO
@@ -557,11 +587,14 @@ def run_nx(
     ``resume`` reads to skip them."""
     cfg = cfg or ClassifyConfig.preset("nx")
     clf = clf or make_classifier(db, cfg, device=device)
+    main = is_main_process()
     prefixes = []
     for name in os.listdir(fastq_dir):
         pos = name.find(e1)
         if pos != -1:
             prefixes.append(name[:pos])
+    if world_size() > 1:
+        prefixes.sort()  # every rank walks the samples in the same order
     manifest_path = os.path.join(fastq_dir, ".kmer_id_tpu_done.json")
     done: set[str] = set()
     if resume and os.path.exists(manifest_path):
@@ -572,8 +605,9 @@ def run_nx(
         if prefix in done:
             log(f"sample {prefix}: already done, skipping (resume)")
             continue
-        with open(os.path.join(fastq_dir, prefix + "_reads.txt"), "w") as reads_out:
-            sp = SampleProcessor(clf, cfg, reads_out=reads_out)
+        rpath = os.path.join(fastq_dir, prefix + "_reads.txt")
+        with open(rpath if main else os.devnull, "w") as reads_out:
+            sp = SampleProcessor(clf, cfg, reads_out=reads_out if main else None)
             if fasta_mode:
                 sp.feed_file(os.path.join(fastq_dir, prefix + e1), fmt="fasta")
             else:
@@ -582,9 +616,10 @@ def run_nx(
                 if os.path.exists(r2):
                     sp.feed_file(r2, fmt="fastq_gz")
             result = sp.finish()
-        write_result(os.path.join(fastq_dir, prefix + "_result.txt"), result)
+        if main:
+            write_result(os.path.join(fastq_dir, prefix + "_result.txt"), result)
         log(f"sample {prefix}: {result.reads} reads")
-        if metrics_path:
+        if metrics_path and main:
             from kmer_id_tpu_torch.utils.timing import write_metrics_json
 
             write_metrics_json(
@@ -595,8 +630,9 @@ def run_nx(
                 stages=result.stage_s, device=str(clf.device),
             )
         done.add(prefix)
-        with open(manifest_path, "w") as f:
-            json.dump(sorted(done), f)
+        if main:
+            with open(manifest_path, "w") as f:
+                json.dump(sorted(done), f)
         processed.append(prefix)
     return processed
 
@@ -644,19 +680,22 @@ def run_vf6(
     jdir = os.path.join(root, jname)
     jnames, fnames = load_jobs(os.path.join(jdir, jname + ".txt"))
     log(f"{len(jnames)} jobs")
+    main = is_main_process()
     for jstr, files in zip(jnames, fnames):
         with ExitStack() as stack:
-            r_out = stack.enter_context(open(os.path.join(jdir, jstr + "_reads.txt"), "w"))
+            r_out = (stack.enter_context(open(os.path.join(jdir, jstr + "_reads.txt"), "w"))
+                     if main else None)
             t_out = (
                 stack.enter_context(open(os.path.join(jdir, jstr + "_target_reads.txt"), "w"))
-                if cfg.save_target > 0
+                if cfg.save_target > 0 and main
                 else None
             )
             sp = SampleProcessor(clf, cfg, reads_out=r_out, target_reads_out=t_out)
             for fl in files:
                 sp.feed_file(fl)
             result = sp.finish()
-        write_result(os.path.join(jdir, jstr + "_result.txt"), result)
+        if main:
+            write_result(os.path.join(jdir, jstr + "_result.txt"), result)
         log(f"job {jstr}: {result.reads} reads")
     return jnames
 

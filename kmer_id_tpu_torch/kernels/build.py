@@ -139,6 +139,9 @@ def load_probe():
     lib.kmer_probe_verify.argtypes = ([p, p, p, i, i, p, u, p, u, p, p, i] + [u] * 5
                                       + [p, i] + [p] * 11 + [p])
     lib.kmer_probe_verify.restype = ctypes.c_int
+    lib.kmer_probe_hits.argtypes = ([p, p, p, i, i, p, u, u, u, p, u, i, p, p, i] + [u] * 5
+                                    + [p, i] + [p] * 7 + [p])
+    lib.kmer_probe_hits.restype = ctypes.c_int
     return lib
 
 

@@ -8,7 +8,9 @@ long-read lane), in two modes:
   ``BLOOM_K`` per read with the key words as payloads.  Returns ``(wpos,
   whi, wlo, npass)``: int32 [B, K] window positions (``SENT`` past the last
   pass), int32 [B, K] key words (0 pad) and int32 [B], the full pass count,
-  which may exceed K (the engine's dense branch reads it).
+  which may exceed K (the engine's dense branch reads it).  K is
+  ``BLOOM_K`` for the single-device engine and ``SHARD_BLOOM_K`` on a rank
+  of the sharded engine's grid (parallel/fpsharded.py).
 * **extract** — the full ``{"hi", "lo", "valid"}`` planes [B, P] for the
   callers that probe every window (the dense path, the overflow replay, a
   DB without a Bloom filter, the legacy engine), with ``fstrand`` [B, P]
@@ -37,6 +39,7 @@ from kmer_id_tpu_torch.ops.extract import extract_kmers, unpack_codes
 from kmer_id_tpu_torch.ops.lookup import bloom_pass
 
 BLOOM_K = 12  # per-read budget of Bloom-passing windows
+SHARD_BLOOM_K = 24  # the same on a rank of the sharded engine's grid
 
 
 @dataclass
@@ -104,16 +107,16 @@ def extract_plain(reads: ReadPlanes, fstrand: bool = False) -> dict:
     return {k: ex[k] for k in keep}
 
 
-def window_gate_plain(db, reads: ReadPlanes):
+def window_gate_plain(db, reads: ReadPlanes, k: int = BLOOM_K):
     """Gate mode in plain PyTorch: extract, ``bloom_pass`` against
     ``db["bloom"]`` (salts ``fp_s4``/``fp_s5``), then the rank compaction of
-    the passing windows with (hi, lo) as payloads."""
+    the passing windows to ``k`` per read with (hi, lo) as payloads."""
     ex = extract_plain(reads)
     bloomed = bloom_pass(db, ex["hi"], ex["lo"], ex["valid"])
     b, p = bloomed.shape
     iota = torch.arange(p, device=bloomed.device, dtype=torch.int32)[None]
     wpos, _, npass, (whi, wlo) = compact_ranks_plain(
-        iota.expand(b, p).contiguous(), bloomed, iota, BLOOM_K, extras=(ex["hi"], ex["lo"]))
+        iota.expand(b, p).contiguous(), bloomed, iota, k, extras=(ex["hi"], ex["lo"]))
     return wpos, whi, wlo, npass
 
 
@@ -144,10 +147,11 @@ def _kernel_args(reads: ReadPlanes, name: str):
     return lead + (ptr(reads.lengths), b, l)
 
 
-def window_gate_cuda(db, reads: ReadPlanes):
-    """Gate mode by the CUDA kernel ``csrc/gate.cu`` (see module doc).
-    Raises on a batch or table the kernel does not take, and if the build
-    or the launch fails.  ``window_gate_cuda.launches`` counts launches."""
+def window_gate_cuda(db, reads: ReadPlanes, k: int = BLOOM_K):
+    """Gate mode by the CUDA kernel ``csrc/gate.cu`` (see module doc), to
+    ``k`` windows per read.  Raises on a batch or table the kernel does not
+    take, and if the build or the launch fails.  ``window_gate_cuda.launches``
+    counts launches."""
     lead = _kernel_args(reads, "window_gate_cuda")
     dev = reads.device
     bloom = db["bloom"]
@@ -156,13 +160,15 @@ def window_gate_cuda(db, reads: ReadPlanes):
     if nblk & (nblk - 1) or bloom.data_ptr() % 16:
         raise ValueError("window_gate_cuda: bloom needs a power-of-two row count "
                          "and 16-byte alignment")
+    if k < 1:
+        raise ValueError(f"window_gate_cuda: k {k} < 1")
     b = reads.rows
-    wpos, whi, wlo = (torch.empty((b, BLOOM_K), dtype=torch.int32, device=dev)
+    wpos, whi, wlo = (torch.empty((b, k), dtype=torch.int32, device=dev)
                       for _ in range(3))
     npass = torch.empty((b,), dtype=torch.int32, device=dev)
     lib = load_gate()
     launch(lib.kmer_window_gate, "window_gate", dev, *lead, ptr(bloom), nblk,
-            db["fp_s4"] & 0xFFFFFFFF, db["fp_s5"] & 0xFFFFFFFF, BLOOM_K,
+            db["fp_s4"] & 0xFFFFFFFF, db["fp_s5"] & 0xFFFFFFFF, k,
             ptr(wpos), ptr(whi), ptr(wlo), ptr(npass))
     window_gate_cuda.launches.add()
     return wpos, whi, wlo, npass
@@ -193,12 +199,12 @@ def extract_cuda(reads: ReadPlanes, fstrand: bool = False) -> dict:
 extract_cuda.launches = LaunchCount()
 
 
-def window_gate(db, reads: ReadPlanes):
+def window_gate(db, reads: ReadPlanes, k: int = BLOOM_K):
     """Engine entry of gate mode: the kernel for a batch on a CUDA device,
     the plain version for a batch on the CPU."""
     if reads.device.type == "cuda":
-        return window_gate_cuda(db, reads)
-    return window_gate_plain(db, reads)
+        return window_gate_cuda(db, reads, k)
+    return window_gate_plain(db, reads, k)
 
 
 def extract(reads: ReadPlanes, fstrand: bool = False) -> dict:

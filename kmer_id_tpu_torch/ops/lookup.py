@@ -104,6 +104,38 @@ def fp_candidates(db, q_hi, q_lo, valid):
     ]
 
 
+def fp_candidates_shard(db, q_hi, q_lo, valid, b0: int, nbloc: int, own2: bool):
+    """:func:`fp_candidates` on one rank of the sharded engine's grid
+    (``local_hits`` of ``kmer_id_tpu/parallel/fpsharded.py:304-319``).
+
+    ``db["fptab"]`` holds the rank's L1 buckets ``[b0, b0 + nbloc)`` of the
+    global table of ``db["nb1"]`` buckets, whose mask the L1 hash takes; an
+    L1 candidate counts only for a bucket in that range.  The two L2 planes
+    count only on the rank that owns L2 (``own2``: db rank 0).  Slot ids are
+    local: L1 ``(b1 - b0) * 8 + i``, L2 ``nbloc * 8 + c * 8 + s``."""
+    fptab, fptab2 = db["fptab"], db["fptab2"]
+    nb2 = fptab2.shape[0]
+    shape = q_hi.shape
+    b1, _, fp = fp_hashes(q_hi, q_lo, db["nb1"], db["fp_s1"], db["fp_s2"], db["fp_s3"])
+    c1, c2, _ = fp_hashes(q_hi, q_lo, nb2, db["fp_s4"], db["fp_s5"], db["fp_s3"])
+    inr = (b1 >= b0) & (b1 < b0 + nbloc)
+    bl = (b1 - b0).clamp(0, nbloc - 1)
+
+    def rows(tab, idx):
+        return tab.index_select(0, idx.reshape(-1)).view(*shape, 4)
+
+    m1, s1 = _fp_bucket_match(rows(fptab, bl), fp)
+    m2, s2 = _fp_bucket_match(rows(fptab2, c1), fp)
+    m3, s3 = _fp_bucket_match(rows(fptab2, c2), fp)
+    off = nbloc * 8
+    own = valid & own2
+    return [
+        ((bl * 8 + s1).to(torch.int32), m1 & valid & inr),
+        ((off + c1 * 8 + s2).to(torch.int32), m2 & own),
+        ((off + c2 * 8 + s3).to(torch.int32), m3 & own & (c2 != c1)),
+    ]
+
+
 # ------------------------------------------------------------ legacy engine
 
 

@@ -7,10 +7,12 @@
   runs every subcommand of the port's CLI on the CPU against a tiny DB made
   here with the port's own host modules: the five classify subcommands
   (``classify-nx``, ``classify-jobs``, ``classify-m3``, ``mitokmer``,
-  ``readc``) with each engine, ``classify-m3 --profile``, ``pack-db``,
-  ``report-b10``, ``report-c3`` and ``build-db`` in RAM and with
-  ``--spill``; each must exit 0, write its files and leave no blocked
-  module in ``sys.modules``.
+  ``readc``) with each engine, ``classify-nx --mesh-db 2`` with each
+  engine (the grid: the command starts its ranks, which inherit the
+  finder through a ``sitecustomize`` on their ``PYTHONPATH``),
+  ``classify-m3 --profile``, ``pack-db``, ``report-b10``, ``report-c3``
+  and ``build-db`` in RAM and with ``--spill``; each must exit 0, write its
+  files and leave no blocked module in ``sys.modules``.
 """
 
 import ast
@@ -72,8 +74,8 @@ def test_scan_covers_the_package():
 
 # ------------------------------------------------- the CLI under a blocker
 
-_RUN = """
-import importlib.abc, json, sys
+_BLOCKER = """
+import importlib.abc, sys
 
 BLOCKED = {blocked!r}
 
@@ -86,6 +88,10 @@ class _Refuse(importlib.abc.MetaPathFinder):
 
 
 sys.meta_path.insert(0, _Refuse())
+"""
+_RUN = """
+import json, sys
+
 from kmer_id_tpu_torch import cli
 
 rcs = {{}}
@@ -160,6 +166,8 @@ def blocked_run(tmp_path_factory):
         (root / job / f"{job}.txt").write_text(f"a 2\n{fq / 's_R1_tr.fastq.gz'}\n{fasta}\n")
     fq_legacy, mito_legacy = root / "fq_legacy", root / "mito_legacy"
     shutil.copytree(fq, fq_legacy)
+    for sfx in ("", "_legacy"):
+        shutil.copytree(fq, root / f"fq_grid{sfx}")
     shutil.copytree(mito, mito_legacy)
     (root / "refkey10.txt").write_text("target\tname\tcount\tuse\n" + "".join(
         f"{t}\tname{t}\t{t + 10}\t1\n" for t in range(NUM_TARG)))
@@ -196,6 +204,10 @@ def blocked_run(tmp_path_factory):
     for legacy in (False, True):
         argvs, eng = classify(legacy)
         runs += [(label, argv + ENGINE + eng) for label, argv in argvs]
+        sfx = "_legacy" if legacy else ""
+        runs.append((f"classify-nx --mesh-db 2{sfx}", [
+            "classify-nx", str(root / f"fq_grid{sfx}"), "--db-dir", str(root / "nxdb"),
+            "--num-targ", str(NUM_TARG), "--mesh-db", "2"] + ENGINE + eng))
     runs += [
         ("classify-m3 --profile", ["classify-m3", "-wdir", str(mito), "-f1", str(fasta),
                                    "--profile", str(root / "trace")] + ENGINE),
@@ -209,9 +221,13 @@ def blocked_run(tmp_path_factory):
         ("build-db --spill", ["build-db", "-name", "bds", "-fadir", str(fa), "--root", str(root),
                               "--spill"]),
     ]
+    site = root / "site"  # the grid's ranks refuse the same imports
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_BLOCKER.format(blocked=BLOCKED))
     out = subprocess.run(
-        [sys.executable, "-c", _RUN.format(blocked=BLOCKED), json.dumps(runs)],
+        [sys.executable, "-c", (_BLOCKER + _RUN).format(blocked=BLOCKED), json.dumps(runs)],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join((str(site), ROOT))),
     )
     assert out.returncode == 0, out.stderr[-4000:]
     files = {}
@@ -225,6 +241,8 @@ def blocked_run(tmp_path_factory):
             f"classify-m3{sfx}": [m / "result.txt"],
             f"mitokmer{sfx}": [root / f"mk{sfx}" / "mitokmer_result.csv"],
             f"readc{sfx}": [root / f"rj{sfx}" / "a_result.txt", root / f"rj{sfx}" / f"rj{sfx}.csv"],
+            f"classify-nx --mesh-db 2{sfx}": [root / f"fq_grid{sfx}" / f"s_{n}.txt"
+                                               for n in ("result", "reads")],
         })
     files.update({
         "classify-m3 --profile": [m / "result.txt" for m in (mito,)] + [
@@ -238,7 +256,8 @@ def blocked_run(tmp_path_factory):
     return json.loads(out.stdout.strip().splitlines()[-1]), files
 
 
-CLASSIFY = ["classify-nx", "classify-jobs", "classify-m3", "mitokmer", "readc"]
+CLASSIFY = ["classify-nx", "classify-jobs", "classify-m3", "mitokmer", "readc",
+            "classify-nx --mesh-db 2"]
 
 
 @pytest.mark.parametrize("cmd", CLASSIFY + [c + "_legacy" for c in CLASSIFY] + [

@@ -4,8 +4,8 @@ package's CLI on copies of one directory of paired FASTQ.gz samples:
 reference simulator (tests/refsim.py), with the fingerprint engine and with
 ``--engine legacy``.  Also: the port never imports jax, both feed paths
 agree, the resume manifest, the per-read and per-batch accounting agree,
-``--profile`` writes a trace, and what is not ported (the mesh and
-multi-host flags) refuses to run.
+``--profile`` writes a trace, and the mesh and multi-process flags, once
+refused, run (tests/test_torch_multiproc.py holds the grid in full).
 """
 
 import gzip
@@ -265,33 +265,47 @@ def test_profile_writes_a_trace(world, tmp_path):
     assert any(str(e.get("name", "")).startswith("aten::") for e in events)
 
 
-def test_unported_paths_refuse(world, tmp_path):
-    """What the port does not have refuses on every entry point instead of
-    running elsewhere: a mesh of more than one device and the multi-host
-    flags."""
+def test_unported_paths_refuse(world, jax_run, tmp_path):
+    """The paths the port once refused now run.  classify-nx on a grid of
+    ranks that the command starts (``--mesh-data 2``, ``--mesh-db 4``)
+    writes the JAX CLI's files; a coordinator or a process id without
+    ``--num-processes`` changes nothing, as in the JAX CLI, and
+    ``--num-processes`` needs a grid of its size.  classify-jobs on a 2 x 2
+    grid writes what it writes on one device, and classify-m3 accepts the
+    mesh flags and does not use them."""
     from kmer_id_tpu_torch import cli
 
-    base = ["classify-nx", str(tmp_path), "--db-dir", str(world["dbdir"]), "--device", "cpu"]
-    for flags in (["--mesh-data", "2"], ["--mesh-db", "4"], ["--num-processes", "2"],
-                  ["--coordinator", "localhost:1234"], ["--process-id", "0"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(base + ARGS + flags)
-    # the vf6 and m3 subcommands refuse a mesh too; a mesh of one runs
-    jobs = tmp_path / "jobs"
-    jobs.mkdir()
-    (jobs / "jobs.txt").write_text("j1 0\n")
-    dbd = tmp_path / "db"  # the DB under its vf6 name
-    dbd.mkdir()
-    for src, dst in (("bData10.txt", "data.txt"), ("btree_10.txt", "tree.txt"),
-                     ("probes10.txt.gz", "probes.txt.gz")):
-        shutil.copy(world["dbdir"] / src, dbd / ("db_" + dst))
-    jobs_argv = ["classify-jobs", "-name", "db", "-jname", "jobs", "--root", str(tmp_path),
-                 "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(jobs_argv + ["--mesh-data", "2", "--mesh-db", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["classify-m3", "-wdir", str(dbd), "-f1", "none", "--mesh-db", "2"])
-    assert cli.main(jobs_argv + ["--mesh-data", "1", "--mesh-db", "1"]) == 0
+    def nx(d):
+        return ["classify-nx", str(d), "--db-dir", str(world["dbdir"]), "--device", "cpu"] + ARGS
+
+    for i, flags in enumerate((["--mesh-data", "2"], ["--mesh-db", "4"],
+                               ["--coordinator", "localhost:1234"], ["--process-id", "0"])):
+        d = _copy(world, f"once_refused{i}")
+        assert cli.main(nx(d) + flags) == 0, flags
+        for sample in ("sA", "sB"):
+            assert _outputs(d, sample) == _outputs(jax_run, sample), (flags, sample)
+    with pytest.raises(ValueError, match="--num-processes 2 needs"):
+        cli.main(nx(tmp_path) + ["--num-processes", "2"])
+    # the vf6 subcommand on a 2 x 2 grid; m3 with the mesh flags
+    dbd, mito = tmp_path / "db", tmp_path / "mito"  # the DB under its vf6 and m3 names
+    for d, prefix in ((dbd, "db_"), (mito, "mitochondria_")):
+        d.mkdir()
+        for src, dst in (("bData10.txt", "data.txt"), ("btree_10.txt", "tree.txt"),
+                         ("probes10.txt.gz", "probes.txt.gz")):
+            shutil.copy(world["dbdir"] / src, d / (prefix + dst))
+    reads = world["fq"] / "sA_R1_tr.fastq.gz"
+    files = {}
+    for mesh in (["--mesh-data", "2", "--mesh-db", "2"], []):
+        jobs = tmp_path / f"jobs{len(mesh)}"
+        jobs.mkdir()
+        (jobs / f"{jobs.name}.txt").write_text(f"j1 1\n{reads}\n")
+        assert cli.main(["classify-jobs", "-name", "db", "-jname", jobs.name, "--root",
+                         str(tmp_path), "--device", "cpu"] + ARGS[2:] + mesh) == 0
+        assert cli.main(["classify-m3", "-wdir", str(mito), "-f1", str(reads), "--device",
+                         "cpu"] + mesh) == 0
+        files[len(mesh)] = [(jobs / n).read_bytes() for n in ("j1_result.txt", "j1_reads.txt")]
+        files[len(mesh)].append((mito / "result.txt").read_bytes())
+    assert files[4] == files[0] and files[0][0]
 
 
 def test_cuda_device_refused_without_cuda(world, tmp_path):
