@@ -9,10 +9,12 @@ together) and holds each against its plain PyTorch version: the window gate
 input forms) at the row shapes of classify-nx, of the long-read lane and of
 m3, and the rank compaction (compact.cu) at the shapes of classify-nx, of
 the long-read lane, of m3's and jobs' short batches and of the legacy
-engine's hit lists, bit for bit; probe + verify (probe.cu) at the window shapes and
-budgets of classify-nx, of the long-read lane and of m3's and jobs' short
-batches, on crafted copies of the nx DB's tables, bit for bit except where
-nothing downstream reads (ops/probe.py).  Holds
+engine's hit lists, bit for bit, with each caller's payload forms and with
+the valid plane misaligned; probe + verify (probe.cu) at the window shapes
+and budgets of classify-nx, of the long-read lane and of m3's and jobs'
+short batches, on crafted copies of the nx DB's tables, bit for bit except
+where nothing downstream reads (ops/probe.py), and the dense path's call
+(extract output to the verify tier) timed on those tables.  Holds
 the engine on the card against the engine on the CPU, for short batches and
 for the long-read lane, on a toy world made with the port's own host
 modules; then drives every classify path through the port's CLI:
@@ -82,19 +84,21 @@ BATCH, MAX_LEN = 8192, 160
 P = MAX_LEN - 30 + 1  # windows per row
 JOB_BATCH, JOB_MAX_LEN = 2048, 512  # the vf6/m3 CLI defaults
 LONG_P = JOB_MAX_LEN - 30 + 1  # windows per chunk row of the long-read lane
-# (name, rows, columns, max_hits, position plane, extra payload planes).
-# Position planes: "window" (column // 3, one row broadcast), "column" (the
-# column, one row broadcast), "random" (per row).  The fingerprint engine
-# launches compact.cu at the dense shapes only: the Bloom-gate call now runs
-# inside gate.cu, the verify tiers inside probe.cu; their shapes stay held
-# here.  The legacy engine launches it once per short-read batch, for the
-# hit list of compact_hits (no extras).
+# (name, rows, columns, max_hits, payload form, extra payload planes).
+# Payload forms, as each row's caller passes them to compact_ranks:
+# "column" (pos the column index as one [1, C] row, extras [B, C]),
+# "window" (pos the window index as one [1, C / 3] row, extras the key words
+# [B, C / 3], r = 3), "random" (pos [B, C / 3] per row, extras [B, C / 3],
+# r = 3).  The fingerprint engine launches compact.cu at the dense shapes
+# only: the Bloom-gate call now runs inside gate.cu, the verify tiers inside
+# probe.cu; their shapes stay held here.  The legacy engine launches it once
+# per short-read batch, for the hit list of compact_hits (no extras).
 KERNEL_SHAPES = (
-    ("bloom_gate", BATCH, P, 12, "window", 2),
+    ("bloom_gate", BATCH, P, 12, "column", 2),
     ("fast_tier", BATCH, 36, 8, "random", 2),
     ("slow_tier", BATCH, 36, 32, "random", 2),
     ("dense_path", BATCH, 3 * P, 32, "window", 2),
-    ("long_bloom_gate", JOB_BATCH, LONG_P, 12, "window", 2),
+    ("long_bloom_gate", JOB_BATCH, LONG_P, 12, "column", 2),
     ("long_verify_tier", JOB_BATCH, 36, 8, "random", 2),
     ("long_dense_path", JOB_BATCH, 3 * LONG_P, 8, "window", 2),
     ("job_dense_path", JOB_BATCH, 3 * LONG_P, 32, "window", 2),  # m3's and jobs' short batches
@@ -143,12 +147,13 @@ def card_line() -> str:
 # ------------------------------------------------------------ kernel phase
 
 
-def kernel_inputs(rng, b, c, density, pos_kind, device):
+def kernel_inputs(rng, b, c, density, form, device):
     """A [b, c] candidate plane laid out as three interleaved planes (so
     several planes of one window can be valid: cross-plane ties), int32
-    candidates over the whole range, two extra planes with the high bit set
-    in about half the words, the tie pattern of tests/test_compact.py in
-    row 0, and the position plane of ``pos_kind`` (KERNEL_SHAPES)."""
+    candidates over the whole range, the tie pattern of tests/test_compact.py
+    in row 0, and the payloads of ``form`` (KERNEL_SHAPES): the position
+    plane and two extra planes with the high bit set in about half the
+    words.  Returns (cand, valid, pos, extras, r)."""
     import torch
 
     cand = rng.integers(-(2**31), 2**31, size=(b, c), dtype=np.int64).astype(np.int32)
@@ -156,16 +161,31 @@ def kernel_inputs(rng, b, c, density, pos_kind, device):
     if c >= 12:
         valid[0, :12] = False
         valid[0, [3, 5, 10]] = True  # window 1 planes 0 and 2, window 3 plane 1
-    ex = [rng.integers(0, 2**32, size=(b, c), dtype=np.uint64).astype(np.uint32)
+    r = 1 if form == "column" else 3
+    w = c // r
+    ex = [rng.integers(0, 2**32, size=(b, w), dtype=np.uint64).astype(np.uint32)
           .view(np.int32) for _ in range(2)]
-    if pos_kind == "window":
-        pos = (np.arange(c, dtype=np.int32) // 3)[None, :]
-    elif pos_kind == "column":
-        pos = np.arange(c, dtype=np.int32)[None, :]
+    if form == "random":
+        pos = rng.integers(0, P, size=(b, w), dtype=np.int32)
     else:
-        pos = np.repeat(rng.integers(0, P, size=(b, c // 3), dtype=np.int32), 3, axis=1)
+        pos = np.arange(w, dtype=np.int32)[None, :]
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
-    return t(cand), t(valid), t(pos), (t(ex[0]), t(ex[1]))
+    return t(cand), t(valid), t(pos), (t(ex[0]), t(ex[1])), r
+
+
+def misaligned_rows(valid, n: int, off: int):
+    """The first ``n`` rows of ``valid`` copied to a view that starts
+    ``off`` bytes past a 16-byte boundary and ends at its allocation's last
+    byte; the bytes before it are nonzero (bytes outside the plane must
+    never count)."""
+    import torch
+
+    buf = torch.ones(off + n * valid.shape[1], dtype=torch.uint8, device=valid.device)
+    view = buf[off:].view(torch.bool).view(n, valid.shape[1])
+    view.copy_(valid[:n])
+    if buf.data_ptr() % 16:
+        raise AssertionError("a fresh allocation is not 16-byte aligned")
+    return view
 
 
 def sync(device) -> None:
@@ -223,9 +243,28 @@ def device_ms(fn, per_graph: int = 20, reps: int = 10) -> float:
     return float(np.median(times))
 
 
+def compact_mismatch(got, want, n_ex: int) -> tuple[list, int]:
+    """(names of the outputs that differ, max abs error) between two rank
+    compactions."""
+    import torch
+
+    bad, err = [], 0
+    for g, w, what in zip(got[:3] + got[3], want[:3] + want[3],
+                          ("pos", "cand", "ncand", "extra0", "extra1")[: 3 + n_ex]):
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+        if not torch.equal(g, w):
+            bad.append(what)
+    return bad, err
+
+
 def kernel_phase(device="cuda") -> dict:
-    """Kernel vs plain version, bit for bit, at every main-path shape and
-    density; returns the numbers for the kernels line."""
+    """compact.cu against compact_ranks_plain, bit for bit, at every
+    main-path shape and density with the payloads in its caller's form;
+    then, at each shape, the valid plane as a view 1-15 bytes past 16-byte
+    alignment, one row short (a row count that is not a multiple of the
+    rows per block) and ending at its allocation's last byte.  Returns the
+    numbers for the kernels line."""
     import torch
 
     from kmer_id_tpu_torch.ops.compact import compact_ranks_cuda, compact_ranks_plain
@@ -233,27 +272,24 @@ def kernel_phase(device="cuda") -> dict:
     rng = np.random.default_rng(SEED)
     max_err = 0
     report = {}
-    for name, b, c, mh, pos_kind, n_ex in KERNEL_SHAPES:
+    for name, b, c, mh, form, n_ex in KERNEL_SHAPES:
         for d in DENSITIES:
-            cand, valid, pos, ex = kernel_inputs(rng, b, c, d, pos_kind, device)
+            cand, valid, pos, ex, r = kernel_inputs(rng, b, c, d, form, device)
             ex = ex[:n_ex]
-            got = compact_ranks_cuda(cand, valid, pos, mh, extras=ex)
-            want = compact_ranks_plain(cand, valid, pos, mh, extras=ex)
+            got = compact_ranks_cuda(cand, valid, pos, mh, extras=ex, r=r)
+            want = compact_ranks_plain(cand, valid, pos, mh, extras=ex, r=r)
             torch.cuda.synchronize()
-            for g, w, what in zip(got[:3] + got[3], want[:3] + want[3],
-                                  ("pos", "cand", "ncand", "extra0", "extra1")[: 3 + n_ex]):
-                err = int((g.long() - w.long()).abs().max()) if g.numel() else 0
-                max_err = max(max_err, err)
-                if not torch.equal(g, w):
-                    raise AssertionError(
-                        f"kernel != plain at {name} density {d}: {what} (max err {err})"
-                    )
+            bad, err = compact_mismatch(got, want, n_ex)
+            max_err = max(max_err, err)
+            if bad:
+                raise AssertionError(f"kernel != plain at {name} density {d}: {bad} "
+                                     f"(max err {err})")
 
             def kern():
-                return compact_ranks_cuda(cand, valid, pos, mh, extras=ex)
+                return compact_ranks_cuda(cand, valid, pos, mh, extras=ex, r=r)
 
             def plain():
-                return compact_ranks_plain(cand, valid, pos, mh, extras=ex)
+                return compact_ranks_plain(cand, valid, pos, mh, extras=ex, r=r)
 
             k_dev, p_dev = device_ms(kern), device_ms(plain)
             k_call, p_call = call_ms(kern), call_ms(plain)
@@ -262,11 +298,29 @@ def kernel_phase(device="cuda") -> dict:
             placed = int(want[2].clamp(max=mh).sum())
             b_ms, b_by = bound(b * c + 4 * (2 + n_ex) * placed + b * mh * 4 * (2 + n_ex) + b * 4,
                                b * c)
-            say(f"kernel {name} [{b}x{c}] mh={mh} density={d}: bit-equal; device "
+            say(f"kernel {name} [{b}x{c}] mh={mh} {form} density={d}: bit-equal; device "
                 f"kernel {k_dev} ms, plain {p_dev} ms, bound {b_ms} ms ({b_by}); per call "
                 f"kernel {k_call} ms, plain {p_call} ms")
             if d == REPORT_DENSITY:
                 report[name] = (k_dev, p_dev, b_ms, b_by)
+                n = b - 1
+
+                def rows(x):
+                    return x[:n] if x.shape[0] == b else x
+
+                for off in range(1, 16):
+                    vv = misaligned_rows(valid, n, off)
+                    args = (cand[:n], vv, rows(pos), mh)
+                    got = compact_ranks_cuda(*args, extras=tuple(map(rows, ex)), r=r)
+                    want = compact_ranks_plain(*args, extras=tuple(map(rows, ex)), r=r)
+                    torch.cuda.synchronize()
+                    bad, err = compact_mismatch(got, want, n_ex)
+                    max_err = max(max_err, err)
+                    if bad:
+                        raise AssertionError(f"kernel != plain at {name} [{n}x{c}], valid "
+                                             f"{off} bytes past alignment: {bad}")
+                say(f"kernel {name} [{n}x{c}]: bit-equal with the valid plane 1-15 bytes past "
+                    "16-byte alignment, ending at its allocation's last byte")
     return {"max_abs_err": max_err, "times": report}
 
 
@@ -715,17 +769,65 @@ def probe_plain_full_tier(db, wpos, whi, wlo, max_hits: int, seen) -> dict:
 
     from kmer_id_tpu_torch.ops.compact import SENT, compact_ranks_plain, interleave_planes
     from kmer_id_tpu_torch.ops.lookup import fp_candidates
-    from kmer_id_tpu_torch.ops.probe import N_PLANES, cv_tier, verify_summary
+    from kmer_id_tpu_torch.ops.probe import cv_tier, verify_summary
 
     valid = wpos < SENT
     ci, vi = interleave_planes(fp_candidates(db, whi, wlo, valid))
-
-    def rep(x):
-        return x.repeat_interleave(N_PLANES, dim=1)
-
-    res = cv_tier(db, rep(whi), rep(wlo), ci, vi, rep(torch.where(valid, wpos, 0)),
-                  max_hits, max_hits, seen, compact_ranks_plain)
+    res = cv_tier(db, whi, wlo, ci, vi, torch.where(valid, wpos, 0), max_hits, max_hits, seen,
+                  compact_ranks_plain)
     return verify_summary(res, vi.sum(dim=1, dtype=torch.int32), max_hits)
+
+
+# (shape name, rows, row width, max_hits) of the dense path's call-site
+# figure: classify-nx batches and the long-read lane's chunk groups
+DENSE_CALLS = (("nx", BATCH, MAX_LEN, 32), ("lane", JOB_BATCH, JOB_MAX_LEN, 8))
+
+
+def dense_call_times(rng, db, keys, n_slots: int, device="cuda") -> dict:
+    """Device ms of the dense path's call (engine/fpclassify.py:dense_tier:
+    from extract output to the verify tier's result) at DENSE_CALLS, on the
+    probe phase's tables.  The extract output is made here: every window
+    valid but 2% (N bases), 3% of the keys DB keys, the rest random.  Beside
+    it, the same call with the payload copies its callers made before
+    compact.cu read payloads in place (key words repeated to [B, 3P], the
+    position row materialised to [B, 3P]); both must agree, ``seen``
+    included.  Returns {shape: (ms, ms with the copies)}."""
+    import torch
+
+    from kmer_id_tpu_torch.engine.fpclassify import _full_planes, dense_tier
+    from kmer_id_tpu_torch.ops.probe import N_PLANES, cv_tier
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    out = {}
+    for name, b, l, mh in DENSE_CALLS:
+        p = l - 29
+        key = rng.integers(0, 1 << 60, size=(b, p), dtype=np.uint64)
+        hit = rng.random((b, p)) < REPORT_DENSITY
+        key[hit] = keys[rng.integers(0, len(keys), size=int(hit.sum()))]
+        hi, lo = _key_words(key)
+        ex = {"hi": t(hi.view(np.int32)), "lo": t(lo.view(np.int32)),
+              "valid": t(rng.random((b, p)) >= 0.02)}
+        seens = [torch.zeros(n_slots + 1, dtype=torch.int8, device=device) for _ in range(2)]
+
+        def copied(seen):
+            ci, vi, pos = _full_planes(db, ex)
+            rep = lambda x: x.repeat_interleave(N_PLANES, dim=1)  # noqa: E731
+            res = cv_tier(db, rep(ex["hi"]), rep(ex["lo"]), ci, vi,
+                          rep(pos).expand(b, -1).contiguous(), mh, mh, seen)
+            return res, vi.sum(dim=1, dtype=torch.int32)
+
+        (got, gn), (want, wn) = dense_tier(db, ex, mh, seens[0]), copied(seens[1])
+        torch.cuda.synchronize()
+        for g, w in zip((*got, gn, seens[0]), (*want, wn, seens[1])):
+            if not torch.equal(g, w):
+                raise AssertionError(f"dense call {name}: in place != with copies")
+        ms = device_ms(lambda: dense_tier(db, ex, mh, seens[0]))
+        ms_copied = device_ms(lambda: copied(seens[1]))
+        say(f"dense call {name} [{b}x{l}] mh={mh} ({int(wn.sum())} candidates, "
+            f"{int(wn.clamp(max=mh).sum())} placed): device {ms} ms, with the payload copies "
+            f"{ms_copied} ms")
+        out[name] = (ms, ms_copied)
+    return out
 
 
 def probe_phase(db, device="cuda") -> dict:
@@ -820,6 +922,8 @@ def probe_phase(db, device="cuda") -> dict:
             f"plain {p_call} ms")
         report[(shape, world)] = (k_dev, p_dev, b_ms, b_by, k_call, p_call)
 
+    dense = dense_call_times(rng, tdb, keys, fp.n_slots, device)
+
     # shard mode (kmer_probe_hits): ranks 0 and 1 of db = 2 (rank 1 holds no
     # L2) and rank 3 of db = 4, on their parts of the same crafted tables
     del tdb
@@ -869,7 +973,7 @@ def probe_phase(db, device="cuda") -> dict:
             hits_report[(f"db{k}/{dbp}", world)] = (k_dev, p_dev, b_ms, b_by)
         del sdb
     return {"max_abs_err": max_err, "times": report, "hits_max_abs_err": hits_err,
-            "hits_times": hits_report}
+            "hits_times": hits_report, "dense_call": dense}
 
 
 # ---------------------------------------------------------- engine phase
@@ -2767,9 +2871,11 @@ def main() -> int:
               "kmer_id_tpu/parallel/fpsharded.py:324", pr["hits_times"][("db0/2", "mixed")],
               pr["hits_max_abs_err"],
               {f"{r} {w}": shape_times(t) for (r, w), t in pr["hits_times"].items()}),
-        entry("compact_ranks", "kmer_id_tpu_torch/csrc/compact.cu",
-              "kmer_id_tpu/ops/compact.py:101", kr["times"]["legacy_nx"], kr["max_abs_err"],
-              {name: shape_times(t) for name, t in kr["times"].items()}),
+        {**entry("compact_ranks", "kmer_id_tpu_torch/csrc/compact.cu",
+                 "kmer_id_tpu/ops/compact.py:101", kr["times"]["legacy_nx"], kr["max_abs_err"],
+                 {name: shape_times(t) for name, t in kr["times"].items()}),
+         "dense_call": {n: {"ms": t[0], "with_copies_ms": t[1]}
+                        for n, t in pr["dense_call"].items()}},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -60,7 +60,6 @@ from kmer_id_tpu_torch.ops.gate import BLOOM_K, ReadPlanes, extract, window_gate
 from kmer_id_tpu_torch.ops.lookup import fp_candidates
 from kmer_id_tpu_torch.ops.probe import (
     KERNEL_MAX_HITS,
-    N_PLANES,
     cv_tier,
     mark_seen,
     probe_verify,
@@ -110,10 +109,20 @@ def tables_from_jax(db: dict, device) -> dict:
 
 def _full_planes(db, ex):
     """Candidates of every window (the dense and no-Bloom paths): the
-    interleaved candidate plane, its validity and window positions."""
+    interleaved candidate plane, its validity and the window positions as
+    one [1, P] row (a per-window payload, ops/probe.py:cv_tier)."""
     ci, vi = interleave_planes(fp_candidates(db, ex["hi"], ex["lo"], ex["valid"]))
-    pos = torch.arange(ci.shape[1], device=ci.device, dtype=torch.int32) // N_PLANES
+    pos = torch.arange(ex["hi"].shape[1], device=ci.device, dtype=torch.int32)
     return ci, vi, pos[None]
+
+
+def dense_tier(db, ex, max_hits: int, seen=None):
+    """The dense path of a Bloom DB, from extract output to the verify
+    tier: every window's candidates, compacted to ``max_hits`` with the key
+    words read per window.  Returns (tier outputs, ncand int32 [B])."""
+    ci, vi, pos = _full_planes(db, ex)
+    res = cv_tier(db, ex["hi"], ex["lo"], ci, vi, pos, max_hits, max_hits, seen)
+    return res, vi.sum(dim=1, dtype=torch.int32)
 
 
 def _compact_verify(db, reads: ReadPlanes, max_hits: int, seen=None):
@@ -125,12 +134,7 @@ def _compact_verify(db, reads: ReadPlanes, max_hits: int, seen=None):
         wpos, whi, wlo, npass = window_gate(db, reads)
         if int(npass.max()) <= BLOOM_K:  # host branch 1
             return probe_verify(db, wpos, whi, wlo, max_hits, seen)
-        ex = extract(reads)  # the dense path
-        ci, vi, pos = _full_planes(db, ex)
-        res = cv_tier(db, ex["hi"].repeat_interleave(N_PLANES, dim=1),
-                      ex["lo"].repeat_interleave(N_PLANES, dim=1), ci, vi, pos,
-                      max_hits, max_hits, seen)
-        ncand = vi.sum(dim=1, dtype=torch.int32)
+        res, ncand = dense_tier(db, extract(reads), max_hits, seen)
     else:
         ex = extract(reads)
         res, ncand = two_tier(db, ex["hi"], ex["lo"], *_full_planes(db, ex), max_hits, seen)

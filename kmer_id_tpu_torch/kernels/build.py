@@ -108,7 +108,8 @@ def load_compact():
     lib = ctypes.CDLL(so)
     p = ctypes.c_void_p
     i = ctypes.c_int
-    lib.kmer_compact_ranks.argtypes = [p, p, p, p, p, i, p, p, p, p, p, i, i, i, p]
+    q = ctypes.c_longlong
+    lib.kmer_compact_ranks.argtypes = [p, p] + [p, q, i] * 3 + [i, p, p, p, p, p, i, i, i, i, p]
     lib.kmer_compact_ranks.restype = ctypes.c_int
     return lib
 

@@ -75,17 +75,19 @@ def _pad_cols(x, n: int):
     return torch.cat([x, x.new_zeros((x.shape[0], n))], dim=1) if n else x
 
 
-def cv_tier(db, hi_ilv, lo_ilv, cand_ilv, valid_ilv, pos_ilv, mh: int, out_mh: int, seen,
+def cv_tier(db, qhi, qlo, cand_ilv, valid_ilv, pos, mh: int, out_mh: int, seen,
             compact=compact_ranks):
     """Compact to ``mh`` candidates, verify against ``rec``, resolve (node,
     tout) from ``tinfo``, mark verified slots in ``seen``.  Returns (cand,
     ver, tin, tout, depth, t) [B, out_mh] (pads are unverified).  The query
-    key words ride as compaction payloads; ``compact`` is an ops/compact.py
-    formulation."""
+    key words ``qhi``/``qlo`` and the positions ``pos`` ride as compaction
+    payloads in any form ops/compact.py takes with ``r = N_PLANES``: per
+    window ([B or 1, C / N_PLANES]) or per interleaved column; ``compact``
+    is an ops/compact.py formulation."""
     b = cand_ilv.shape[0]
     mh = min(mh, cand_ilv.shape[1])
     pos32, cand32, _, (qhi, qlo) = compact(
-        cand_ilv, valid_ilv, pos_ilv, mh, extras=(hi_ilv, lo_ilv)
+        cand_ilv, valid_ilv, pos, mh, extras=(qhi, qlo), r=N_PLANES
     )
     has = pos32 < SENT
     rows = db["rec"].index_select(0, cand32.reshape(-1)).view(b, mh, 3)
@@ -100,15 +102,12 @@ def cv_tier(db, hi_ilv, lo_ilv, cand_ilv, valid_ilv, pos_ilv, mh: int, out_mh: i
     return tuple(_pad_cols(x, out_mh - mh) for x in (cand32, ver, tin, tout, depth, t))
 
 
-def two_tier(db, qhi, qlo, cand_ilv, valid_ilv, pos_ilv, max_hits: int, seen,
+def two_tier(db, qhi, qlo, cand_ilv, valid_ilv, pos, max_hits: int, seen,
              compact=compact_ranks):
     """:func:`cv_tier` at ``FAST_HITS`` when no read has more candidates
-    (one host sync), else at ``max_hits``.  ``qhi``/``qlo`` [B, C / planes]
-    are repeated to ride beside the interleaved candidates.  Returns
-    (tier outputs, ncand int32 [B])."""
-    k = cand_ilv.shape[1] // qhi.shape[1]
-    args = (db, qhi.repeat_interleave(k, dim=1), qlo.repeat_interleave(k, dim=1),
-            cand_ilv, valid_ilv, pos_ilv)
+    (one host sync), else at ``max_hits``; the payloads as :func:`cv_tier`
+    takes them.  Returns (tier outputs, ncand int32 [B])."""
+    args = (db, qhi, qlo, cand_ilv, valid_ilv, pos)
     ncand = valid_ilv.sum(dim=1, dtype=torch.int32)
     mh = max_hits
     if max_hits > FAST_HITS and int(ncand.max()) <= FAST_HITS:
@@ -138,8 +137,7 @@ def probe_verify_plain(db, wpos, whi, wlo, max_hits: int, seen=None) -> dict:
     wvalid = wpos < SENT
     wp = torch.where(wvalid, wpos, 0)
     ci, vi = interleave_planes(fp_candidates(db, whi, wlo, wvalid))
-    res, ncand = two_tier(db, whi, wlo, ci, vi, wp.repeat_interleave(N_PLANES, dim=1),
-                          max_hits, seen, compact_ranks_plain)
+    res, ncand = two_tier(db, whi, wlo, ci, vi, wp, max_hits, seen, compact_ranks_plain)
     return verify_summary(res, ncand, max_hits)
 
 
@@ -231,11 +229,7 @@ def probe_hits_plain(db, wpos, whi, wlo, sh: int, b0: int, nbloc: int, own2: boo
     wvalid = wpos < SENT
     wp = torch.where(wvalid, wpos, 0)
     ci, vi = interleave_planes(fp_candidates_shard(db, whi, wlo, wvalid, b0, nbloc, own2))
-
-    def rep(x):
-        return x.repeat_interleave(N_PLANES, dim=1)
-
-    pos32, cand32, ncand, (qhi, qlo) = compact(ci, vi, rep(wp), sh, extras=(rep(whi), rep(wlo)))
+    pos32, cand32, ncand, (qhi, qlo) = compact(ci, vi, wp, sh, extras=(whi, wlo), r=N_PLANES)
     b = cand32.shape[0]
     rows = db["rec"].index_select(0, cand32.reshape(-1)).view(b, sh, 3)
     ver = (pos32 < SENT) & (rows[..., 0] == qhi) & (rows[..., 1] == qlo)

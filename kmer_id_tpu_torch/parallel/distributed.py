@@ -28,7 +28,7 @@ GROUP_TIMEOUT_S = 1800.0  # a collective that waits longer on a peer raises
 
 
 def initialize(coordinator: str | None = None, num_processes: int | None = None,
-               process_id: int | None = None, device="cpu", backend: str | None = None) -> None:
+               process_id: int | None = None, device="cuda", backend: str | None = None) -> None:
     """Join the process group as rank ``process_id`` of ``num_processes``
     (no-op for one process).  ``coordinator`` is ``host:port`` of the TCP
     store, which rank 0 serves; ``backend`` defaults to NCCL for a CUDA
@@ -48,7 +48,7 @@ def initialize(coordinator: str | None = None, num_processes: int | None = None,
         f"({backend})")
 
 
-def health_check(device="cpu") -> dict:
+def health_check(device="cuda") -> dict:
     """Startup barrier + device sanity (the JAX dict): a tiny sum on this
     rank's ``device`` and, with more than one rank, an all-reduce over all
     of them, whose total must be the world size."""

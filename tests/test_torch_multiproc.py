@@ -281,6 +281,29 @@ def test_health_check_and_initialize_on_one_process():
     assert h["barrier_s"] is None  # single process: no cross-process barrier
 
 
+def test_distributed_entry_points_default_to_the_card(monkeypatch):
+    """Like every entry point of the port, ``initialize`` and
+    ``health_check`` take the card unless told otherwise: the probe runs on
+    ``cuda`` (and fails where there is none), and a process group is NCCL's
+    on the current card."""
+    import torch
+    import torch.distributed as dist
+
+    from kmer_id_tpu_torch.parallel.distributed import health_check, initialize
+
+    h = health_check()
+    assert h["devices"] == {"cuda": torch.cuda.is_available()}
+    assert h["ok"] == torch.cuda.is_available()
+    seen = {}
+    monkeypatch.setattr(torch.cuda, "set_device", lambda dev: seen.setdefault("device", dev))
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: seen.setdefault("backend", backend))
+    monkeypatch.setattr(dist, "get_rank", lambda: 0)
+    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
+    initialize("127.0.0.1:1", 2, 0)
+    assert seen == {"device": torch.device("cuda"), "backend": "nccl"}
+
+
 def test_sample_queue_claims_and_restart(tmp_path):
     from kmer_id_tpu_torch.parallel.distributed import SampleQueue
 
