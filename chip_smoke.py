@@ -13,11 +13,14 @@ engine's hit lists, bit for bit, with each caller's payload forms and with
 the valid plane misaligned; probe + verify (probe.cu) at the window shapes
 and budgets of classify-nx, of the long-read lane and of m3's and jobs'
 short batches, on crafted copies of the nx DB's tables, bit for bit except
-where nothing downstream reads (ops/probe.py), and the dense path's call
-(extract output to the verify tier) timed on those tables.  Holds
-the engine on the card against the engine on the CPU, for short batches and
-for the long-read lane, on a toy world made with the port's own host
-modules; then drives every classify path through the port's CLI:
+where nothing downstream reads (ops/probe.py), and its every-window pass
+(the dense path, a DB without a filter, a grid rank without one) at every
+window of those shapes, the dense path's call timed beside the chain it
+replaced (fp_candidates and compact.cu).  Holds
+the engine on the card against the engine on the CPU, for short batches
+(with the DB's Bloom filter and without) and for the long-read lane, on a
+toy world made with the port's own host modules; then drives every
+classify path through the port's CLI:
 
 * ``classify-nx`` against a 33M-probe fingerprint DB: a small sample checked
   against the reference simulator (tests/refsim.py), a 500,000-read sample
@@ -49,9 +52,12 @@ modules; then drives every classify path through the port's CLI:
 Every phase that fails ends the run with a non-zero exit code, and so does
 a path that did not go through its kernels: window_gate and probe_verify on
 each fingerprint path (in the overlap runs window_gate exactly once per
-batch, counted from the submitter thread); on each legacy run window_extract once per device run
-(short-read batch, chunk group, replay) and compact_ranks once per
-short-read batch.  Without a
+batch, counted from the submitter thread), window_extract and
+probe_verify_dense on jobs' probe-dense batches and on the toy world
+without a filter, probe_hits_dense on every grid rank without one, and
+compact_ranks on no fingerprint path; on each legacy run window_extract
+once per device run (short-read batch, chunk group, replay) and
+compact_ranks once per short-read batch.  Without a
 CUDA device it exits 1 before doing anything.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
@@ -89,10 +95,11 @@ LONG_P = JOB_MAX_LEN - 30 + 1  # windows per chunk row of the long-read lane
 # "column" (pos the column index as one [1, C] row, extras [B, C]),
 # "window" (pos the window index as one [1, C / 3] row, extras the key words
 # [B, C / 3], r = 3), "random" (pos [B, C / 3] per row, extras [B, C / 3],
-# r = 3).  The fingerprint engine launches compact.cu at the dense shapes
-# only: the Bloom-gate call now runs inside gate.cu, the verify tiers inside
-# probe.cu; their shapes stay held here.  The legacy engine launches it once
-# per short-read batch, for the hit list of compact_hits (no extras).
+# r = 3).  The fingerprint engine launches compact.cu nowhere: the Bloom-gate
+# call runs inside gate.cu, the verify tiers and the dense and no-filter
+# compactions inside probe.cu; their shapes stay held here.  The legacy
+# engine launches it once per short-read batch, for the hit list of
+# compact_hits (no extras).
 KERNEL_SHAPES = (
     ("bloom_gate", BATCH, P, 12, "column", 2),
     ("fast_tier", BATCH, 36, 8, "random", 2),
@@ -114,17 +121,25 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-KERNELS = ("window_gate", "window_extract", "probe_verify", "probe_hits", "compact_ranks")
+KERNELS = ("window_gate", "window_extract", "probe_verify", "probe_hits", "probe_verify_dense",
+           "probe_hits_dense", "probe_slots", "compact_ranks")
 
 
 def _wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from kmer_id_tpu_torch.ops.compact import compact_ranks_cuda
     from kmer_id_tpu_torch.ops.gate import extract_cuda, window_gate_cuda
-    from kmer_id_tpu_torch.ops.probe import probe_hits_cuda, probe_verify_cuda
+    from kmer_id_tpu_torch.ops.probe import (
+        probe_hits_cuda,
+        probe_hits_dense_cuda,
+        probe_slots_cuda,
+        probe_verify_cuda,
+        probe_verify_dense_cuda,
+    )
 
     return dict(zip(KERNELS, (window_gate_cuda, extract_cuda, probe_verify_cuda,
-                              probe_hits_cuda, compact_ranks_cuda)))
+                              probe_hits_cuda, probe_verify_dense_cuda, probe_hits_dense_cuda,
+                              probe_slots_cuda, compact_ranks_cuda)))
 
 
 def reset_counts() -> None:
@@ -639,6 +654,63 @@ def probe_windows(rng, fpdb, keys, b, k, p, kinds):
     return wpos, whi, wlo, plants
 
 
+def dense_kinds(rng, b, world):
+    """Row kinds of an every-window world: 0 no valid window; 1 extract's
+    output of a probe-dense batch's ordinary read (every window valid but
+    2%, REPORT_DENSITY of them DB keys, the rest random keys); 2 exactly 1,
+    mh or mh + 1 planted candidates (random (window, plane) pairs, the
+    other windows not valid); 3 every window valid, each key planted in a
+    random non-empty set of planes (a run far past the budget); 4 DB keys,
+    each in three random windows, most often of different 32-window tiles
+    (the same slot placed more than once).
+    Worlds: "background" (all 1), "saturated" (0, 2 and 3), "mixed" (every
+    kind)."""
+    if world == "background":
+        return np.ones(b, np.int64)
+    if world == "saturated":
+        return rng.choice([0, 2, 3], size=b, p=[0.05, 0.8, 0.15])
+    return rng.choice(5, size=b, p=[0.1, 0.52, 0.2, 0.03, 0.15])
+
+
+def dense_windows(rng, keys, b, p, kinds, mh):
+    """Extract-mode planes for rows of ``kinds`` (:func:`dense_kinds`)
+    against a DB's sorted uint64 ``keys``: (hi, lo uint32 [b, p],
+    valid bool [b, p], numpy) and the plants those rows need, in
+    :func:`probe_windows`' form for :func:`craft_tables`."""
+    key = rng.integers(0, 1 << 60, size=(b, p), dtype=np.uint64)
+    valid = np.zeros((b, p), bool)
+    hit = rng.random((b, p)) < REPORT_DENSITY
+    bg = (kinds == 1)[:, None]
+    key = np.where(bg & hit, keys[rng.integers(0, len(keys), size=(b, p))], key)
+    valid |= bg & (rng.random((b, p)) >= 0.02)
+    valid |= (kinds == 3)[:, None]
+    planes = np.zeros((b, p), np.int64)
+    verify = np.full((b, p), -1, np.int64)
+    for r in np.nonzero(kinds == 2)[0]:  # n of the row's (window, plane) pairs
+        n = min(int(rng.choice([1, mh, mh + 1])), 3 * p)
+        pick = rng.choice(3 * p, size=n, replace=False)
+        cols, q = pick // 3, pick % 3
+        valid[r, cols] = True
+        np.bitwise_or.at(planes[r], cols, 1 << q)
+        verify[r, cols] = np.where(rng.random(n) < 0.5, q, -1)
+    full = np.nonzero(kinds == 3)[0]
+    planes[full] = rng.integers(1, 8, size=(len(full), p))
+    verify[full] = np.where(rng.random((len(full), p)) < 0.7,
+                            rng.integers(0, 3, size=(len(full), p)), -1)
+    verify[full] = np.where((planes[full] >> np.maximum(verify[full], 0)) & 1, verify[full], -1)
+    for r in np.nonzero(kinds == 4)[0]:
+        for k in keys[rng.integers(0, len(keys), size=int(rng.integers(2, 6)))]:
+            cols = rng.choice(p, size=min(3, p), replace=False)
+            key[r, cols] = k
+            valid[r, cols] = True
+    hi, lo = _key_words(key)
+    sel = planes > 0
+    plants = {"hi": hi[sel], "lo": lo[sel], "planes": planes[sel],
+              "dup": (rng.random(int(sel.sum())) < 0.1) & ((planes[sel] & 1) == 1),
+              "verify": verify[sel]}
+    return hi, lo, valid, plants
+
+
 def craft_tables(rng, fpdb, n_nodes, plants):
     """Copies of ``fpdb``'s fptab, fptab2 and rec with ``plants`` written in
     (:func:`probe_windows`): each key's fingerprint in a free half of every
@@ -781,53 +853,205 @@ def probe_plain_full_tier(db, wpos, whi, wlo, max_hits: int, seen) -> dict:
 # (shape name, rows, row width, max_hits) of the dense path's call-site
 # figure: classify-nx batches and the long-read lane's chunk groups
 DENSE_CALLS = (("nx", BATCH, MAX_LEN, 32), ("lane", JOB_BATCH, JOB_MAX_LEN, 8))
+# the every-window pass's shapes: (name, rows, windows, budget, (db axis, db
+# rank) in shard mode or None); m3's and jobs' short batches are lane-wide
+DENSE_SHAPES = (("nx", BATCH, P, 32, None), ("lane", JOB_BATCH, LONG_P, 8, None),
+                ("m3", JOB_BATCH, LONG_P, 32, None), ("shard", BATCH, P, 8, (2, 0)))
+DENSE_WORLDS = ("mixed", "saturated", "background")
+
+
+def dense_chain(db, hi, lo, valid, mh: int, seen) -> dict:
+    """The dense path's call as the engine made it before probe.cu took
+    every window: ops/lookup.py's ``fp_candidates`` over every window, the
+    interleave, the compaction by csrc/compact.cu, the plain verify tier and
+    the summary (extract output to the per-read dict)."""
+    import torch
+
+    from kmer_id_tpu_torch.ops.compact import compact_ranks_cuda, interleave_planes
+    from kmer_id_tpu_torch.ops.lookup import fp_candidates
+    from kmer_id_tpu_torch.ops.probe import cv_tier, verify_summary
+
+    ci, vi = interleave_planes(fp_candidates(db, hi, lo, valid))
+    pos = torch.arange(hi.shape[1], device=hi.device, dtype=torch.int32)[None]
+    res = cv_tier(db, hi, lo, ci, vi, pos, mh, mh, seen, compact_ranks_cuda)
+    return verify_summary(res, vi.sum(dim=1, dtype=torch.int32), mh)
 
 
 def dense_call_times(rng, db, keys, n_slots: int, device="cuda") -> dict:
-    """Device ms of the dense path's call (engine/fpclassify.py:dense_tier:
-    from extract output to the verify tier's result) at DENSE_CALLS, on the
-    probe phase's tables.  The extract output is made here: every window
-    valid but 2% (N bases), 3% of the keys DB keys, the rest random.  Beside
-    it, the same call with the payload copies its callers made before
-    compact.cu read payloads in place (key words repeated to [B, 3P], the
-    position row materialised to [B, 3P]); both must agree, ``seen``
-    included.  Returns {shape: (ms, ms with the copies)}."""
+    """Device ms of the dense path's call (extract output to the per-read
+    dict) at DENSE_CALLS, on the probe phase's tables: through the
+    every-window pass of probe.cu, and through the chain it replaced
+    (:func:`dense_chain`, compact.cu and plain PyTorch); both must agree,
+    ``seen`` included.  The extract output is made here: every window valid
+    but 2%, 3% of the keys DB keys, the rest random.  Returns {shape: (ms,
+    chain ms)}."""
     import torch
 
-    from kmer_id_tpu_torch.engine.fpclassify import _full_planes, dense_tier
-    from kmer_id_tpu_torch.ops.probe import N_PLANES, cv_tier
+    from kmer_id_tpu_torch.ops.probe import probe_verify_dense_cuda
 
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     out = {}
     for name, b, l, mh in DENSE_CALLS:
         p = l - 29
-        key = rng.integers(0, 1 << 60, size=(b, p), dtype=np.uint64)
-        hit = rng.random((b, p)) < REPORT_DENSITY
-        key[hit] = keys[rng.integers(0, len(keys), size=int(hit.sum()))]
-        hi, lo = _key_words(key)
-        ex = {"hi": t(hi.view(np.int32)), "lo": t(lo.view(np.int32)),
-              "valid": t(rng.random((b, p)) >= 0.02)}
+        hi, lo, valid, _ = dense_windows(rng, keys, b, p, np.ones(b, np.int64), mh)
+        hi, lo, valid = t(hi.view(np.int32)), t(lo.view(np.int32)), t(valid)
         seens = [torch.zeros(n_slots + 1, dtype=torch.int8, device=device) for _ in range(2)]
-
-        def copied(seen):
-            ci, vi, pos = _full_planes(db, ex)
-            rep = lambda x: x.repeat_interleave(N_PLANES, dim=1)  # noqa: E731
-            res = cv_tier(db, rep(ex["hi"]), rep(ex["lo"]), ci, vi,
-                          rep(pos).expand(b, -1).contiguous(), mh, mh, seen)
-            return res, vi.sum(dim=1, dtype=torch.int32)
-
-        (got, gn), (want, wn) = dense_tier(db, ex, mh, seens[0]), copied(seens[1])
+        got = probe_verify_dense_cuda(db, hi, lo, valid, mh, seens[0])
+        want = dense_chain(db, hi, lo, valid, mh, seens[1])
         torch.cuda.synchronize()
-        for g, w in zip((*got, gn, seens[0]), (*want, wn, seens[1])):
-            if not torch.equal(g, w):
-                raise AssertionError(f"dense call {name}: in place != with copies")
-        ms = device_ms(lambda: dense_tier(db, ex, mh, seens[0]))
-        ms_copied = device_ms(lambda: copied(seens[1]))
-        say(f"dense call {name} [{b}x{l}] mh={mh} ({int(wn.sum())} candidates, "
-            f"{int(wn.clamp(max=mh).sum())} placed): device {ms} ms, with the payload copies "
-            f"{ms_copied} ms")
-        out[name] = (ms, ms_copied)
+        bad, _ = probe_mismatch(got, want, n_slots, seens)
+        if bad:
+            raise AssertionError(f"dense call {name}: probe.cu != the compact.cu chain: {bad}")
+        ms = device_ms(lambda: probe_verify_dense_cuda(db, hi, lo, valid, mh, seens[0]))
+        ms_chain = device_ms(lambda: dense_chain(db, hi, lo, valid, mh, seens[1]))
+        say(f"dense call {name} [{b}x{l}] mh={mh} ({int(want['overflow'].sum())} overflow "
+            f"rows, {int(want['nh'].sum())} verified): device, probe.cu {ms} ms, the chain it "
+            f"replaced (fp_candidates + compact.cu) {ms_chain} ms")
+        out[name] = (ms, ms_chain)
     return out
+
+
+def dense_needed(ncand_w, valid, mh: int, shard: bool):
+    """(reached, needed) [B, P] from the per-window candidate counts: the
+    windows a call must reach, every one in shard mode (ncand is an output)
+    and in the verify entry those before the count first passes ``mh`` (past
+    it overflow is known); and the valid ones of those, whose key words and
+    bucket rows it must read."""
+    import torch
+
+    if shard:
+        return torch.ones_like(valid), valid
+    before = torch.cumsum(ncand_w, dim=1) - ncand_w
+    reached = before <= mh
+    return reached, valid & reached
+
+
+def dense_phase(rng, fp, keys, tinfo, device="cuda") -> dict:
+    """The every-window pass of probe.cu (probe_verify_dense_cuda, and
+    probe_hits_dense_cuda on db rank 0 of 2) against its plain version at
+    DENSE_SHAPES, in the worlds of :func:`dense_kinds` on crafted copies of
+    the 33M-probe DB's tables (one set per shape), bit for bit under the
+    probe comparison's masking, ``seen`` included; device times (CUDA
+    graphs) of the kernel and of the plain version (its full tier) beside
+    the bound.  Returns {(shape, world): (kernel, plain, bound ms,
+    bound_by)} and the max abs error."""
+    import torch
+
+    from kmer_id_tpu_torch.ops.compact import interleave_planes
+    from kmer_id_tpu_torch.ops.lookup import fp_candidates, fp_candidates_shard, fp_hashes
+    from kmer_id_tpu_torch.ops.probe import (
+        probe_hits_dense_cuda,
+        probe_hits_dense_plain,
+        probe_slots_cuda,
+        probe_slots_plain,
+        probe_verify_dense_cuda,
+        probe_verify_dense_plain,
+    )
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    report, slots_report, max_err = {}, {}, 0
+    for shape, b, p, mh, rank in DENSE_SHAPES:
+        t0 = time.perf_counter()
+        worlds, plants = {}, []
+        for world in DENSE_WORLDS:
+            hi, lo, valid, pl = dense_windows(rng, keys, b, p, dense_kinds(rng, b, world), mh)
+            worlds[world] = (t(hi.view(np.int32)), t(lo.view(np.int32)), t(valid))
+            plants.append(pl)
+        crafted = craft_tables(rng, fp, len(tinfo),
+                               {k: np.concatenate([pl[k] for pl in plants]) for k in plants[0]})
+        if rank is None:
+            db = probe_tables(fp, crafted, tinfo, device)
+            n_slots, b0, nbloc, own2 = fp.n_slots, 0, len(crafted["fptab"]), True
+        else:
+            dbp, k = rank
+            db = shard_probe_tables(fp, crafted, tinfo, dbp, k, device)
+            nbloc = len(crafted["fptab"]) // dbp
+            b0, own2 = k * nbloc, k == 0
+            n_slots = (nbloc + len(crafted["fptab2"])) * 8
+        del crafted
+        say(f"dense {shape}: {len(worlds)} worlds and tables crafted in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for world, (hi, lo, valid) in worlds.items():
+            seens = [torch.zeros(n_slots + 1, dtype=torch.int8, device=device) for _ in range(2)]
+            if rank is None:
+                kernel = lambda s: probe_verify_dense_cuda(db, hi, lo, valid, mh, s)  # noqa: E731
+                plain = lambda s: probe_verify_dense_plain(db, hi, lo, valid, mh, s)  # noqa: E731
+                planes = fp_candidates(db, hi, lo, valid)
+            else:
+                kernel = lambda s: probe_hits_dense_cuda(  # noqa: E731
+                    db, hi, lo, valid, mh, b0, nbloc, own2, s)
+                plain = lambda s: probe_hits_dense_plain(  # noqa: E731
+                    db, hi, lo, valid, mh, b0, nbloc, own2, s)
+                planes = fp_candidates_shard(db, hi, lo, valid, b0, nbloc, own2)
+                b1 = fp_hashes(hi, lo, db["nb1"], db["fp_s1"], db["fp_s2"], db["fp_s3"])[0]
+            got, want = kernel(seens[0]), plain(seens[1])
+            torch.cuda.synchronize()
+            check = probe_mismatch if rank is None else hits_mismatch
+            bad, err = check(got, want, n_slots, seens)
+            max_err = max(max_err, err)
+            if bad:
+                raise AssertionError(f"probe.cu every-window {shape} {world} != plain: {bad} "
+                                     f"(max err {err})")
+            ncand_w = sum(v.to(torch.int64) for _, v in planes)
+            ncand = interleave_planes(planes)[1].sum(dim=1)
+            ver = want["ver"]
+            n_ver, placed = int(ver.sum()), int(ncand.clamp(max=mh).sum())
+            counts = set(ncand.tolist())
+            if world != "background" and not ({0, 1, mh, mh + 1} <= counts and n_ver > 0):
+                raise AssertionError(f"dense world {shape} {world}: candidate counts "
+                                     f"{sorted(counts)[:8]}..., {n_ver} verified")
+            if world != "background" and not bool((ncand > mh).any()):
+                raise AssertionError(f"dense world {shape} {world}: no row past the budget")
+            reached, needed = dense_needed(ncand_w, valid, mh, rank is not None)
+            n_need = int(needed.sum())
+            if rank is None:
+                rows = 48 * n_need
+                out_bytes = b * mh * 21 + b * 14
+            else:
+                rows = 16 * int((needed & (b1 >= b0) & (b1 < b0 + nbloc)).sum())
+                rows += 32 * n_need if own2 else 0
+                out_bytes = b * (mh * 21 + 4)
+            # the valid byte of each window the call reaches, the key words
+            # and bucket rows of each it needs; a rec row per placed
+            # candidate, a tinfo row and a seen byte per verified hit; the
+            # outputs written once
+            nbytes = (int(reached.sum()) + 8 * n_need + rows + 12 * placed + 9 * n_ver
+                      + out_bytes)
+            b_ms, b_by = bound(nbytes, PROBE_OPS_PER_WINDOW * n_need)
+            k_dev = device_ms(lambda: kernel(seens[0]))
+            p_dev = device_ms(lambda: plain(seens[1]))
+            say(f"probe.cu every-window {shape} {world} [{b}x{p}] mh={mh}"
+                + (f" db {rank[1]}/{rank[0]}" if rank else "")
+                + f": equal ({int(valid.sum())} windows, {n_need} needed, {int(ncand.sum())} "
+                f"candidates, {placed} placed, {n_ver} verified, {int((ncand > mh).sum())} rows "
+                f"past the budget); device kernel {k_dev} ms, plain {p_dev} ms, bound {b_ms} ms "
+                f"({b_by})")
+            report[(shape, world)] = (k_dev, p_dev, b_ms, b_by)
+
+            # slots mode (the exact replay) on the same planes and tables
+            shard = None if rank is None else (b0, nbloc, own2)
+            got, want = (probe_slots_cuda(db, hi, lo, valid, shard),
+                         probe_slots_plain(db, hi, lo, valid, shard))
+            err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+            max_err = max(max_err, err)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"probe.cu slots {shape} {world} != plain (max err {err})")
+            n_valid, n_cand = int(valid.sum()), int(ncand.sum())
+            in_l1 = n_valid if rank is None else int((valid & (b1 >= b0) & (b1 < b0 + nbloc)).sum())
+            # the valid plane read once, the key words and bucket rows of each
+            # valid window; a rec row per candidate; the slot and tin planes
+            # written once
+            nbytes = (9 * b * p + 8 * n_valid + 16 * in_l1 + (32 * n_valid if own2 else 0)
+                      + 12 * n_cand)
+            b_ms, b_by = bound(nbytes, PROBE_OPS_PER_WINDOW * n_valid)
+            k_dev = device_ms(lambda: probe_slots_cuda(db, hi, lo, valid, shard))
+            p_dev = device_ms(lambda: probe_slots_plain(db, hi, lo, valid, shard))
+            say(f"probe.cu slots {shape} {world} [{b}x{p}]: equal ({int((want[0] >= 0).sum())} "
+                f"verified windows); device kernel {k_dev} ms, plain {p_dev} ms, bound {b_ms} ms "
+                f"({b_by})")
+            slots_report[(shape, world)] = (k_dev, p_dev, b_ms, b_by)
+        del db
+    return {"times": report, "slots_times": slots_report, "max_abs_err": max_err}
 
 
 def probe_phase(db, device="cuda") -> dict:
@@ -843,7 +1067,8 @@ def probe_phase(db, device="cuda") -> dict:
     bit, ``seen`` included) at nx [8192x24] with sh 8, for ranks 0 and 1 of
     db = 2 and rank 3 of db = 4 (SHARD_RANKS), in the same worlds, on the
     ranks' parts of the crafted tables, device times beside the bound.
-    Returns the numbers for the kernels line."""
+    Then the every-window pass (:func:`dense_call_times`,
+    :func:`dense_phase`).  Returns the numbers for the kernels line."""
     import torch
 
     from kmer_id_tpu_torch.core.taxonomy import Taxonomy
@@ -908,7 +1133,10 @@ def probe_phase(db, device="cuda") -> dict:
                                      and not bool(want["consistent"].all())):
             raise AssertionError(f"probe world {shape} mixed: no overflow, hit or inconsistency")
         b = wp.shape[0]
-        nbytes = (b * BLOOM_K * 12 + 48 * n_valid + 12 * placed + 9 * n_ver
+        # the wpos plane read once, the key words and three bucket rows of
+        # each valid window; a rec row per placed candidate, a tinfo row and a
+        # seen byte per verified hit; the outputs written once
+        nbytes = (b * BLOOM_K * 4 + 56 * n_valid + 12 * placed + 9 * n_ver
                   + b * mh * 21 + b * 14)
         b_ms, b_by = bound(nbytes, PROBE_OPS_PER_WINDOW * n_valid)
         k_dev = device_ms(lambda: probe_verify_cuda(tdb, wp, wh, wl, mh, seen_k))
@@ -924,7 +1152,7 @@ def probe_phase(db, device="cuda") -> dict:
 
     dense = dense_call_times(rng, tdb, keys, fp.n_slots, device)
 
-    # shard mode (kmer_probe_hits): ranks 0 and 1 of db = 2 (rank 1 holds no
+    # shard mode (probe_hits_cuda): ranks 0 and 1 of db = 2 (rank 1 holds no
     # L2) and rank 3 of db = 4, on their parts of the same crafted tables
     del tdb
     sh = SHARD_HITS  # the engine's min(8, max_hits) at the default max_hits
@@ -955,11 +1183,13 @@ def probe_phase(db, device="cuda") -> dict:
             if world != "empty" and not (n_ver > 0 and int(ncand.max()) > sh):
                 raise AssertionError(f"shard world db {k}/{dbp} {world}: no hit or no row past "
                                      f"the budget")
-            # windows read once; an L1 row per window in the rank's range, two
-            # L2 rows per window on the rank owning L2; a rec row per placed
-            # candidate, a tinfo row and a seen byte per verified hit; the
-            # plane and the counts written once
-            nbytes = (wp.numel() * 12 + 16 * in_range + (32 * n_valid if own2 else 0)
+            # the wpos plane read once, the key words of each valid window; an
+            # L1 row per window in the rank's range, two L2 rows per window on
+            # the rank owning L2; a rec row per placed candidate, a tinfo row
+            # and a seen byte per verified hit; the plane and the counts
+            # written once
+            nbytes = (wp.numel() * 4 + 8 * n_valid + 16 * in_range
+                      + (32 * n_valid if own2 else 0)
                       + 12 * placed + 9 * n_ver + wp.shape[0] * (sh * 21 + 4))
             b_ms, b_by = bound(nbytes, PROBE_OPS_PER_WINDOW * n_valid)
             k_dev = device_ms(lambda: probe_hits_cuda(sdb, wp, wh, wl, sh, b0, nbloc, own2, seen_k))
@@ -972,8 +1202,9 @@ def probe_phase(db, device="cuda") -> dict:
                 f"({b_by})")
             hits_report[(f"db{k}/{dbp}", world)] = (k_dev, p_dev, b_ms, b_by)
         del sdb
+    every = dense_phase(rng, fp, keys, tinfo, device)
     return {"max_abs_err": max_err, "times": report, "hits_max_abs_err": hits_err,
-            "hits_times": hits_report, "dense_call": dense}
+            "hits_times": hits_report, "dense_call": dense, "every": every}
 
 
 # ---------------------------------------------------------- engine phase
@@ -1043,9 +1274,13 @@ def toy_batches(codes, lengths, dense_rows, num_probes):
     return out
 
 
-def engine_phase(device="cuda", num_probes=100_000, batch=1024, max_len=256) -> None:
+def engine_phase(device="cuda", num_probes=100_000, batch=1024, max_len=256) -> dict:
     """FpClassifier on ``device`` vs on the CPU: finals, seen and ucount
-    bit-equal on the toy world."""
+    bit-equal on the toy world, with its Bloom filter and without (a DB past
+    the filter budget: every batch probes every window).  Returns the
+    kernel launches of the run on ``device`` without the filter."""
+    import dataclasses
+
     from kmer_id_tpu_torch.db.fpdb import build_fpdb
     from kmer_id_tpu_torch.engine.fpclassify import FpClassifier
 
@@ -1056,28 +1291,38 @@ def engine_phase(device="cuda", num_probes=100_000, batch=1024, max_len=256) -> 
     )
     fpdb = build_fpdb(packed, tax)
     batches = toy_batches(codes, lengths, dense_rows, num_probes)
-    res = {}
-    for dev in (device, "cpu"):
-        clf = FpClassifier(packed, tax, batch_size=batch, max_len=max_len,
-                           fpdb=fpdb, device=dev)
-        seen = clf.new_seen()
-        finals = []
-        for bt in batches:
-            seen, f = clf.process_batch(seen, bt)
-            finals.append(f)
-        res[dev] = (finals, seen.cpu().numpy(), clf.ucount(seen))
-    for i, (a, c) in enumerate(zip(res[device][0], res["cpu"][0])):
-        if not np.array_equal(a, c):
-            raise AssertionError(f"toy world batch {i}: finals differ between {device} and cpu")
-    if not np.array_equal(res[device][1], res["cpu"][1]):
-        raise AssertionError("toy world: seen differs")
-    if not np.array_equal(res[device][2], res["cpu"][2]):
-        raise AssertionError("toy world: ucount differs")
-    if res["cpu"][2].sum() == 0 or min(res["cpu"][0][0][r] for r in dense_rows) <= 0:
-        raise AssertionError("toy world: no hits, or a dense read unresolved")
-    say(f"engine {device} vs cpu on the toy world ({num_probes} probes, "
-        f"{len(batches)} batches of {batch}x{max_len}): finals, seen, ucount bit-equal; "
-        f"ucount sum {int(res['cpu'][2].sum())}")
+    launches = None
+    for label, f in (("with its filter", fpdb), ("without a filter",
+                                                  dataclasses.replace(fpdb, bloom=None))):
+        res = {}
+        for dev in (device, "cpu"):
+            clf = FpClassifier(packed, tax, batch_size=batch, max_len=max_len,
+                               fpdb=f, device=dev)
+            if ("bloom" in clf._db) != (f.bloom is not None):
+                raise AssertionError(f"toy world {label}: the tables' filter")
+            reset_counts()
+            seen = clf.new_seen()
+            finals = []
+            for bt in batches:
+                seen, f_ = clf.process_batch(seen, bt)
+                finals.append(f_)
+            res[dev] = (finals, seen.cpu().numpy(), clf.ucount(seen))
+            if dev == device and f.bloom is None:
+                launches = read_counts()
+        for i, (a, c) in enumerate(zip(res[device][0], res["cpu"][0])):
+            if not np.array_equal(a, c):
+                raise AssertionError(f"toy world {label} batch {i}: finals differ between "
+                                     f"{device} and cpu")
+        if not np.array_equal(res[device][1], res["cpu"][1]):
+            raise AssertionError(f"toy world {label}: seen differs")
+        if not np.array_equal(res[device][2], res["cpu"][2]):
+            raise AssertionError(f"toy world {label}: ucount differs")
+        if res["cpu"][2].sum() == 0 or min(res["cpu"][0][0][r] for r in dense_rows) <= 0:
+            raise AssertionError(f"toy world {label}: no hits, or a dense read unresolved")
+        say(f"engine {device} vs cpu on the toy world {label} ({num_probes} probes, "
+            f"{len(batches)} batches of {batch}x{max_len}): finals, seen, ucount bit-equal; "
+            f"ucount sum {int(res['cpu'][2].sum())}")
+    return {"launches": launches}
 
 
 def long_reads(genome, seed=3):
@@ -2372,6 +2617,7 @@ def build_phase(device, work=WORK, name="syn", n_reads=6000) -> dict:
 GRID_TIMEOUT_S = 420  # a rank process's whole life; its peers are killed then
 GRID_GRACE_S = 30  # after a rank fails, how long its peers get to end
 FP_GRID_KERNELS = ("window_gate", "probe_hits")
+NOFILTER_GRID_KERNELS = ("window_extract", "probe_hits_dense")  # a DB past the filter budget
 LEGACY_GRID_KERNELS = ("window_extract", "compact_ranks")
 
 
@@ -2527,13 +2773,25 @@ def grid_rank(spec: dict) -> int:
         grid.barrier()
         out["profile"] = grid_profile(dev, lambda: run_nx(spec["fq_profiled"], db, cfg, clf=clf),
                                       spec["profiled_batches"])
-    else:  # the toy world at engine level
+    else:  # the toy world at engine level, with the shard filters and without
+        import dataclasses
+
+        from kmer_id_tpu_torch.parallel import fpsharded
+
         packed, tax, fpdb, batches, longs = toy_grid_world()
         clf = ShardedFpClassifier(packed, tax, grid, 1024, 256, fpdb=fpdb)
         out["setup_s"] = time.perf_counter() - t0
         reset_counts()
         out.update(toy_grid_run(clf, batches, longs))
         out["launches"] = read_counts()
+        fpsharded.bloom_blocks_for = lambda n_keys: None  # every shard past the filter budget
+        clf = ShardedFpClassifier(packed, tax, grid, 1024, 256,
+                                  fpdb=dataclasses.replace(fpdb, bloom=None))
+        if "bloom" in clf._db:
+            raise AssertionError(f"rank {spec['rank']}: a filter past the budget")
+        reset_counts()
+        out["nofilter"] = toy_grid_run(clf, batches, longs)
+        out["nofilter_launches"] = read_counts()
     sync(dev)
     out["modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "kmer_id_tpu"))
     with open(spec["out"], "w") as f:
@@ -2693,23 +2951,33 @@ def grid_phase(device, nx, work=WORK) -> dict:
                                        device=device), batches, longs)
     ranks = spawn_grid({"task": "toy", "dp": 2, "dbp": 2, "device": device}, 4, work)
     per_rank["grid_toy_2x2"] = ranks
+    per_rank["grid_toy_2x2_nofilter"] = [{"rank": r["rank"], "launches": r["nofilter_launches"]}
+                                         for r in ranks]
     for r in ranks:
-        got = {k: r[k] for k in ("finals", "long", "ucount")}
-        if got != single:
-            bad = [k for k in single if got[k] != single[k]]
-            raise AssertionError(f"grid 2 x 2 rank {r['rank']}: {bad} != the single-device "
-                                 f"engine's")
+        for label, got in (("", {k: r[k] for k in ("finals", "long", "ucount")}),
+                           (" without filters", r["nofilter"])):
+            if got != single:
+                bad = [k for k in single if got[k] != single[k]]
+                raise AssertionError(f"grid 2 x 2{label} rank {r['rank']}: {bad} != the "
+                                     f"single-device engine's")
     if sum(single["ucount"]) <= 0 or min(single["finals"][0][i] for i in (5, 1021)) <= 0:
         raise AssertionError("grid 2 x 2: no hits, or a dense read unresolved")
     out["launches"]["grid_toy_2x2"] = sum_counts(ranks)
+    out["launches"]["grid_toy_2x2_nofilter"] = sum_counts(per_rank["grid_toy_2x2_nofilter"])
     say(f"grid 2 x 2 (four ranks sharing one card, gloo), toy world: finals of 2 batches, the "
-        f"long read's final and ucount equal the single-device engine's on every rank")
+        f"long read's final and ucount equal the single-device engine's on every rank, with "
+        f"the shard filters and without")
 
     for path, counts in out["launches"].items():
-        kernels = LEGACY_GRID_KERNELS if "legacy" in path else FP_GRID_KERNELS
+        kernels = (LEGACY_GRID_KERNELS if "legacy" in path else
+                   NOFILTER_GRID_KERNELS if "nofilter" in path else FP_GRID_KERNELS)
+        if "toy" in path:  # the long read and the replay on every rank
+            kernels += ("probe_slots",)
         for k in kernels:
             if counts[k] <= 0:
                 raise AssertionError(f"the {path} path launched {k} no time")
+        if "legacy" not in path and counts["compact_ranks"]:
+            raise AssertionError(f"the {path} path launched compact_ranks")
         for r in per_rank.get(path, []):
             if any(r["launches"][k] <= 0 for k in kernels):
                 raise AssertionError(f"{path}: rank {r['rank']} launched {r['launches']}")
@@ -2747,7 +3015,7 @@ def main() -> int:
     kr = kernel_phase()
     say(f"phase kernel: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    engine_phase()
+    eng = engine_phase()
     long_engine_phase()
     say(f"phase engine: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2787,17 +3055,26 @@ def main() -> int:
                 "nx_overlap": ov["launches"], "nx_stages": st["launches"],
                 "build_db_jobs": bd["launches"]}
     paths = {**fp_paths, **{f"{p}_legacy": r["launches"] for p, r in lg.items()},
-             **gd["launches"]}
+             **gd["launches"], "toy_nofilter": eng["launches"]}
     by_kernel = {k: {path: n[k] for path, n in paths.items()} for k in KERNELS}
     for k in ("window_gate", "probe_verify"):
         for path in fp_paths:
             if by_kernel[k][path] <= 0:
                 raise AssertionError(f"the {path} path launched {k} no time")
     # the fingerprint engine's dense path and overflow replay: jobs'
-    # probe-dense contigs; the legacy paths were held by check_legacy_launches
-    for k in ("window_extract", "compact_ranks"):
-        if sum(by_kernel[k][path] for path in fp_paths) <= 0:
-            raise AssertionError(f"no fingerprint path launched {k}")
+    # probe-dense contigs, through the every-window pass of probe.cu and no
+    # compact.cu; the legacy paths were held by check_legacy_launches
+    for k in ("window_extract", "probe_verify_dense"):
+        if by_kernel[k]["jobs"] <= 0:
+            raise AssertionError(f"the jobs path launched {k} no time")
+    for path in fp_paths:
+        if by_kernel["compact_ranks"][path]:
+            raise AssertionError(f"the fingerprint {path} path launched compact_ranks")
+    # a DB without a filter: every batch through the every-window pass
+    nf = eng["launches"]
+    if (nf["probe_verify_dense"] <= 0 or nf["probe_slots"] <= 0 or nf["compact_ranks"]
+            or nf["probe_verify"]):
+        raise AssertionError(f"the toy world without a filter launched {nf}")
     for name in ("jax", "kmer_id_tpu"):
         if name in sys.modules:
             raise AssertionError(f"{name} was imported")
@@ -2854,6 +3131,7 @@ def main() -> int:
         return out
 
     gate_src = "kmer_id_tpu_torch/csrc/gate.cu"
+    ev = pr["every"]
     print(json.dumps({"kernels": [
         entry("window_gate", gate_src, "kmer_id_tpu/ops/compact.py:101",
               gr["times"][("gate", "nx", "packed")], gr["max_abs_err"],
@@ -2871,11 +3149,24 @@ def main() -> int:
               "kmer_id_tpu/parallel/fpsharded.py:324", pr["hits_times"][("db0/2", "mixed")],
               pr["hits_max_abs_err"],
               {f"{r} {w}": shape_times(t) for (r, w), t in pr["hits_times"].items()}),
-        {**entry("compact_ranks", "kmer_id_tpu_torch/csrc/compact.cu",
-                 "kmer_id_tpu/ops/compact.py:101", kr["times"]["legacy_nx"], kr["max_abs_err"],
-                 {name: shape_times(t) for name, t in kr["times"].items()}),
-         "dense_call": {n: {"ms": t[0], "with_copies_ms": t[1]}
-                        for n, t in pr["dense_call"].items()}},
+        {**entry("probe_verify_dense", "kmer_id_tpu_torch/csrc/probe.cu",
+                 "kmer_id_tpu/ops/compact.py:101", ev["times"][("nx", "background")],
+                 ev["max_abs_err"],
+                 {f"{s} {w}": shape_times(t) for (s, w), t in ev["times"].items()
+                  if s != "shard"}),
+         "dense_call": {n: {"ms": t[0], "chain_ms": t[1]} for n, t in pr["dense_call"].items()}},
+        entry("probe_hits_dense", "kmer_id_tpu_torch/csrc/probe.cu",
+              "kmer_id_tpu/parallel/fpsharded.py:324", ev["times"][("shard", "background")],
+              ev["max_abs_err"],
+              {f"db0/2 {w}": shape_times(t) for (s, w), t in ev["times"].items()
+               if s == "shard"}),
+        entry("probe_slots", "kmer_id_tpu_torch/csrc/probe.cu",
+              "kmer_id_tpu/engine/fpclassify.py:363", ev["slots_times"][("nx", "background")],
+              ev["max_abs_err"],
+              {f"{s} {w}": shape_times(t) for (s, w), t in ev["slots_times"].items()}),
+        entry("compact_ranks", "kmer_id_tpu_torch/csrc/compact.cu",
+              "kmer_id_tpu/ops/compact.py:101", kr["times"]["legacy_nx"], kr["max_abs_err"],
+              {name: shape_times(t) for name, t in kr["times"].items()}),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ Text format (one CSV line per probe, ``kmer_build_vf6.cpp:625`` emit /
 ``position`` is the 0-based index of the k-mer's last base in the org's
 concatenated genome.  The reference loads this text into a 24 GiB
 open-addressing hash at startup (minutes of parse + page faults,
-``newkmer_10nx.cpp:988``); the TPU-native layout is a *packed artifact*: keys
+``newkmer_10nx.cpp:988``); the JAX package's layout, kept here byte for byte,
+is a *packed artifact*: keys
 sorted as uint64, split into (hi, lo) uint32 planes for the device, plus
 parallel value arrays and a first-level bucket index — written once to a
 directory of ``.npy`` files and memory-mapped on load, so startup is I/O-bound
@@ -320,9 +321,9 @@ _ARRAYS = ("keys", "hi", "lo", "target", "org", "position", "fstrand")
 def save_packed(db: PackedDB, out_dir) -> None:
     """Write a packed DB as a directory of raw .npy planes + manifest.
 
-    Loading memory-maps the planes (np.load mmap) — the TPU-native analog of
-    checkpoint/resume for the DB artifact (SURVEY.md §5): one-time pack,
-    near-instant startup afterwards.
+    Loading memory-maps the planes (np.load mmap) — checkpoint/resume for
+    the DB artifact (SURVEY.md §5): one-time pack, near-instant startup
+    afterwards.
     """
     os.makedirs(out_dir, exist_ok=True)
     for name in _ARRAYS:

@@ -11,6 +11,11 @@ long-read lane.  Per batch of short reads:
       ``seen`` marks, the deepest hit and the consistency test)
       -> final call on device -> finals int32 [B]
 
+A batch with a read past ``BLOOM_K`` passing windows, and every batch on a
+DB without a Bloom filter, skips the gate's compaction: gate.cu's extract
+mode, then the every-window pass of probe + verify over all of a read's
+windows.  On a card both passes are ``csrc/probe.cu``.
+
 Finals carry bit 30 for reads with more candidates than ``max_hits``; the
 host replays those exactly (:meth:`FpClassifier._finish_collect`).
 
@@ -27,14 +32,14 @@ each per batch:
 
 1. ``max(npass) > BLOOM_K`` — any read passing more Bloom windows than the
    budget sends the batch to the probe-every-window (dense) path;
-2. ``max(ncand) > FAST_HITS`` — the full ``max_hits`` verify tier, only on
-   a DB without a Bloom filter (and in the plain probe + verify on the
-   CPU): the probe + verify kernel ranks straight to ``max_hits``, and the
-   dense path always takes the full tier;
+2. ``max(ncand) > FAST_HITS`` — the full ``max_hits`` verify tier, only in
+   the plain versions on the CPU (on a DB without a Bloom filter, and in
+   the plain probe + verify): the probe + verify kernel's two passes rank
+   straight to ``max_hits``, and the dense path always takes the full tier;
 3. ``need_fold`` — any inconsistent read (a read without hits is consistent);
 4. the fold's trip count (ops/fold.py), only when 3 holds.
 
-A card batch on the Bloom path takes 1, 3 and 4.
+A card batch takes 1 (on a Bloom DB), 3 and 4.
 
 ``seen`` (the per-sample unique-k-mer set, ``newkmer_10nx.cpp:596-603``) is
 an int8 tensor over slot ids with one extra sink element at index
@@ -54,17 +59,14 @@ from kmer_id_tpu_torch.db.fpdb import FpDB, build_fpdb, build_tinfo
 from kmer_id_tpu_torch.db.probes import PackedDB
 from kmer_id_tpu_torch.io.batch import Batch, LongRead, pack_codes
 from kmer_id_tpu_torch.engine.host import PendingBatch, fold_host, fold_host_many
-from kmer_id_tpu_torch.ops.compact import interleave_planes
 from kmer_id_tpu_torch.ops.fold import fold_targets_chain
 from kmer_id_tpu_torch.ops.gate import BLOOM_K, ReadPlanes, extract, window_gate
-from kmer_id_tpu_torch.ops.lookup import fp_candidates
 from kmer_id_tpu_torch.ops.probe import (
     KERNEL_MAX_HITS,
-    cv_tier,
     mark_seen,
+    probe_slots,
     probe_verify,
-    two_tier,
-    verify_summary,
+    probe_verify_dense,
 )
 from kmer_id_tpu_torch.ops.words import u32_tensor
 
@@ -107,38 +109,21 @@ def tables_from_jax(db: dict, device) -> dict:
     return out
 
 
-def _full_planes(db, ex):
-    """Candidates of every window (the dense and no-Bloom paths): the
-    interleaved candidate plane, its validity and the window positions as
-    one [1, P] row (a per-window payload, ops/probe.py:cv_tier)."""
-    ci, vi = interleave_planes(fp_candidates(db, ex["hi"], ex["lo"], ex["valid"]))
-    pos = torch.arange(ex["hi"].shape[1], device=ci.device, dtype=torch.int32)
-    return ci, vi, pos[None]
-
-
-def dense_tier(db, ex, max_hits: int, seen=None):
-    """The dense path of a Bloom DB, from extract output to the verify
-    tier: every window's candidates, compacted to ``max_hits`` with the key
-    words read per window.  Returns (tier outputs, ncand int32 [B])."""
-    ci, vi, pos = _full_planes(db, ex)
-    res = cv_tier(db, ex["hi"], ex["lo"], ci, vi, pos, max_hits, max_hits, seen)
-    return res, vi.sum(dim=1, dtype=torch.int32)
-
-
 def _compact_verify(db, reads: ReadPlanes, max_hits: int, seen=None):
     """Window gate + probe + verify (see the JAX engine's
     ``_compact_verify``) of a batch's read rows; returns the per-read dict of
-    ops/probe.py.  A batch with a read past ``BLOOM_K`` passing windows, and
-    a DB without a Bloom filter, probe every window instead."""
-    if "bloom" in db:
+    ops/probe.py.  A batch with a read past ``BLOOM_K`` passing windows (the
+    dense path), and a DB without a Bloom filter (the JAX engine's two
+    tiers), probe every window of extract's planes instead
+    (``probe_verify_dense``)."""
+    bloom = "bloom" in db
+    if bloom:
         wpos, whi, wlo, npass = window_gate(db, reads)
         if int(npass.max()) <= BLOOM_K:  # host branch 1
             return probe_verify(db, wpos, whi, wlo, max_hits, seen)
-        res, ncand = dense_tier(db, extract(reads), max_hits, seen)
-    else:
-        ex = extract(reads)
-        res, ncand = two_tier(db, ex["hi"], ex["lo"], *_full_planes(db, ex), max_hits, seen)
-    return verify_summary(res, ncand, max_hits)
+    ex = extract(reads)
+    return probe_verify_dense(db, ex["hi"], ex["lo"], ex["valid"], max_hits, seen,
+                              tiered=not bloom)
 
 
 def _summary_plane(cv):
@@ -220,16 +205,9 @@ def fp_finals(db, reads: ReadPlanes, seen, max_hits: int):
 
 def fp_slots(db, reads: ReadPlanes):
     """Per-window verified slot ids (int32 [B, P], -1 = miss): the exact
-    replay for candidate-overflow reads."""
+    replay for candidate-overflow reads (ops/probe.py slots mode)."""
     ex = extract(reads)
-    hi, lo = ex["hi"], ex["lo"]
-    rec = db["rec"]
-    out = torch.full_like(hi, -1)
-    for cand, cv in fp_candidates(db, hi, lo, ex["valid"]):
-        rows = rec.index_select(0, cand.reshape(-1)).view(*cand.shape, 3)
-        ok = cv & (rows[..., 0] == hi) & (rows[..., 1] == lo)
-        out = torch.where(ok, cand, out)  # at most one plane verifies
-    return out
+    return probe_slots(db, ex["hi"], ex["lo"], ex["valid"])[0]
 
 
 def _scatter_plane_seen(seen, plane):
@@ -248,9 +226,9 @@ class FpClassifier:
     ``process_batch`` / ``process_long`` / ``process_long_many`` /
     ``ucount``.
 
-    ``max_hits`` is the per-read verified-hit budget.  On a CUDA device with
-    a Bloom-filtered DB it must lie in [1, ``KERNEL_MAX_HITS``] = [1, 32]:
-    the probe + verify kernel ranks with one warp lane per output column."""
+    ``max_hits`` is the per-read verified-hit budget.  On a CUDA device it
+    must lie in [1, ``KERNEL_MAX_HITS``] = [1, 32]: the probe + verify
+    kernel ranks with one warp lane per output column."""
 
     def __init__(
         self,
@@ -277,8 +255,7 @@ class FpClassifier:
         f = fpdb if fpdb is not None else build_fpdb(db, taxonomy)
         self.fpdb = f
         self.slot_target = f.slot_target
-        if self.device.type == "cuda" and f.bloom is not None and not (
-                1 <= max_hits <= KERNEL_MAX_HITS):
+        if self.device.type == "cuda" and not 1 <= max_hits <= KERNEL_MAX_HITS:
             raise ValueError(f"max_hits {max_hits} outside [1, {KERNEL_MAX_HITS}]: the probe + "
                              "verify kernel ranks with one warp lane per output column")
         self._db = device_tables(f, taxonomy, self.device)

@@ -137,12 +137,11 @@ def load_probe():
     p = ctypes.c_void_p
     i = ctypes.c_int
     u = ctypes.c_uint32
-    lib.kmer_probe_verify.argtypes = ([p, p, p, i, i, p, u, p, u, p, p, i] + [u] * 5
-                                      + [p, i] + [p] * 11 + [p])
-    lib.kmer_probe_verify.restype = ctypes.c_int
-    lib.kmer_probe_hits.argtypes = ([p, p, p, i, i, p, u, u, u, p, u, i, p, p, i] + [u] * 5
-                                    + [p, i] + [p] * 7 + [p])
-    lib.kmer_probe_hits.restype = ctypes.c_int
+    lib.kmer_probe.argtypes = ([p, p, p, p, i, i, p, u, u, u, p, u, i, p] + [u] * 5
+                               + [p, i, p, i, i, i] + [p] * 15 + [p])
+    lib.kmer_probe.restype = ctypes.c_int
+    lib.kmer_probe_slots.argtypes = [p, p, p, i, i, p, u, u, u, p, u, i, p] + [u] * 5 + [p, p, p]
+    lib.kmer_probe_slots.restype = ctypes.c_int
     return lib
 
 

@@ -28,8 +28,8 @@ collectives are the grid's:
   targets are summed over db).  The replay's trigger is the flagged count
   summed over data (``psum_data``), replicated, so every rank takes the
   same branch and calls the same collectives.  A DB without a filter
-  probes every window (extract mode, the plain shard probes, the
-  compaction by ``csrc/compact.cu``).
+  probes every window (extract mode, then the every-window pass of the
+  shard mode, ``csrc/probe.cu`` on a card).
 * ``seen`` is local to the rank (slot ids are local) with the port's sink
   element; ``ucount`` sums it over data, resolves each local slot's target
   from its ``rec`` tin, counts per target and sums over db.
@@ -65,11 +65,10 @@ from kmer_id_tpu_torch.db.probes import PackedDB
 from kmer_id_tpu_torch.engine.fpclassify import FpClassifier
 from kmer_id_tpu_torch.engine.host import fold_host, fold_host_many
 from kmer_id_tpu_torch.io.batch import Batch, LongRead
-from kmer_id_tpu_torch.ops.compact import SENT, compact_ranks
+from kmer_id_tpu_torch.ops.compact import SENT
 from kmer_id_tpu_torch.ops.fold import fold_targets_chain
 from kmer_id_tpu_torch.ops.gate import SHARD_BLOOM_K, ReadPlanes, extract, window_gate
-from kmer_id_tpu_torch.ops.lookup import fp_candidates_shard
-from kmer_id_tpu_torch.ops.probe import mark_seen, probe_hits, probe_hits_plain
+from kmer_id_tpu_torch.ops.probe import mark_seen, probe_hits, probe_hits_dense, probe_slots
 from kmer_id_tpu_torch.ops.words import u32_tensor
 from kmer_id_tpu_torch.parallel.mesh import Grid, slice_batch
 
@@ -289,10 +288,8 @@ class ShardedFpClassifier(GridRows):
             wpos, whi, wlo, npass = window_gate(db, reads, SHARD_BLOOM_K)
             hits = probe_hits(db, wpos, whi, wlo, *args)
             return hits, (hits["ncand"] > self.sh) | (npass > SHARD_BLOOM_K)
-        ex = extract(reads)  # no filter: every window, compact.cu on a card
-        iota = torch.arange(ex["hi"].shape[1], dtype=torch.int32, device=self.device)
-        wpos = torch.where(ex["valid"], iota[None], SENT)
-        hits = probe_hits_plain(db, wpos, ex["hi"], ex["lo"], *args, compact=compact_ranks)
+        ex = extract(reads)  # no filter: every window
+        hits = probe_hits_dense(db, ex["hi"], ex["lo"], ex["valid"], *args)
         return hits, hits["ncand"] > self.sh
 
     def _step_finals(self, reads: ReadPlanes, seen):
@@ -331,16 +328,8 @@ class ShardedFpClassifier(GridRows):
         probed (no gate), the verified slots marked in ``seen``."""
         db = self._db
         ex = extract(reads)
-        hi, lo = ex["hi"], ex["lo"]
-        rec = db["rec"]
-        slot = torch.full_like(hi, -1)
-        stin = torch.zeros_like(hi)
-        for cand, cv in fp_candidates_shard(db, hi, lo, ex["valid"], self.b0, self.nbloc,
-                                            self.own2):
-            r = rec.index_select(0, cand.reshape(-1)).view(*cand.shape, 3)
-            vr = cv & (r[..., 0] == hi) & (r[..., 1] == lo)
-            slot = torch.where(vr, cand, slot)
-            stin = torch.where(vr, r[..., 2] & 0xFFFFFF, stin)
+        slot, stin = probe_slots(db, ex["hi"], ex["lo"], ex["valid"],
+                                 (self.b0, self.nbloc, self.own2))
         mark_seen(seen, torch.where(slot >= 0, slot, seen.shape[0] - 1))
         node = db["tinfo"][:, 0].index_select(0, stin.reshape(-1)).view(slot.shape)
         return seen, self.grid.psum_db(torch.where(slot >= 0, node, 0))

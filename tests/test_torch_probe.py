@@ -213,8 +213,9 @@ def _mix(a, b, s1, s2):
 
 
 def _model_probe(tabs, tinfo, salts, wpos, whi, wlo, mh):
-    """probe.cu's outputs as its arithmetic computes them (warp lanes as a
-    [B, 32] axis), as torch tensors."""
+    """probe.cu's outputs at the gate's <= 32 windows, ranked as its
+    arithmetic ranks one 32-window tile (warp lanes as a [B, 32] axis), as
+    torch tensors."""
     fptab, fptab2, rec = tabs["fptab"], tabs["fptab2"], tabs["rec"]
     nb1, nb2 = len(fptab), len(fptab2)
     s1, s2, s3, s4, s5 = salts

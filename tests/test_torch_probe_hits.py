@@ -204,8 +204,9 @@ def _match(row, fp):
 
 
 def _model_hits(local, tinfo, salts, nb1, b0, nbloc, own2, wpos, whi, wlo, sh):
-    """kmer_probe_hits' outputs as its arithmetic computes them (warp lanes
-    as a [B, 32] axis), and its seen marks, as torch tensors."""
+    """probe.cu's shard-mode outputs at the gate's <= 32 windows, ranked as
+    its arithmetic ranks one 32-window tile (warp lanes as a [B, 32] axis),
+    and its seen marks, as torch tensors."""
     fptab, fptab2, rec = local["fptab"], local["fptab2"], local["rec"]
     nb2 = len(fptab2)
     s1, s2, s3, s4, s5 = salts
