@@ -7,10 +7,11 @@ Builds the three kernels from csrc/ (one nvcc per source, started
 together) and holds each against its plain PyTorch version: the window gate
 (gate.cu, both modes, extract mode with and without its fstrand plane, both
 input forms) at the row shapes of classify-nx, of the long-read lane and of
-m3, and the rank compaction (compact.cu) at the shapes of classify-nx, of
-the long-read lane, of m3's and jobs' short batches and of the legacy
-engine's hit lists, bit for bit, with each caller's payload forms and with
-the valid plane misaligned; probe + verify (probe.cu) at the window shapes
+m3 and at its edge shapes (GATE_EDGES), and the rank compaction
+(compact.cu) at the shapes of classify-nx, of the long-read lane, of m3's
+and jobs' short batches and of the legacy engine's hit lists, bit for bit,
+with each caller's payload forms and with the valid plane misaligned;
+probe + verify (probe.cu) at the window shapes
 and budgets of classify-nx, of the long-read lane and of m3's and jobs'
 short batches, on crafted copies of the nx DB's tables, bit for bit except
 where nothing downstream reads (ops/probe.py), and its every-window pass
@@ -354,6 +355,12 @@ GATE_SHAPES = (
     ("lane", JOB_BATCH, JOB_MAX_LEN, (JOB_MAX_LEN, JOB_MAX_LEN + 1)),
     ("m3", JOB_BATCH, JOB_MAX_LEN, (100, 301)),
 )
+# (rows, width, k) of gate.cu's edges, held bit for bit but not timed: row
+# counts around its warps per row (ops/gate.py:gate_group), widths around a
+# chunk of 32 windows and one window past a step
+GATE_EDGES = ((1, 30, 12), (7, 31, 24), (7, 61, 12), (7, 62, 24), (2047, 160, 12),
+              (2049, 512, 24), (1, 512, 12), (8193, 160, 24), (8193, 158, 12), (7, 542, 24))
+SECTOR = 32  # bytes of an L2 sector: the least a random Bloom row can cost
 
 
 def bound(nbytes: float, nops: float) -> tuple[float, str]:
@@ -416,6 +423,45 @@ def gate_rows(rng, b, l, lens, bloom, s4, s5):
     return codes, lengths
 
 
+def gate_edge_rows(rng, b, l, k, bloom, s4, s5):
+    """Read rows at the redesign's edges, any ``b`` >= 1 and ``l`` >= KSIZE:
+    the first rows of lengths ``l``, 0, 29, 30, 31, 29 + k and 30 + k (those
+    that fit), the rest random in [0, l]; N runs and invalid read ends in
+    other rows, few enough for the exception list; a planted probe in every
+    third row; and every window of the rows of length 29 + k and 30 + k
+    planted, so their npass is exactly k and k + 1.  Sets the probes' bits
+    in ``bloom``.  Returns (codes uint8 [b, l], lengths int32 [b])."""
+    from kmer_id_tpu_torch.core.codec import KSIZE, canonical_kmers
+    from kmer_id_tpu_torch.db.fpdb import bloom_hashes
+
+    codes = rng.integers(0, 4, size=(b, l), dtype=np.uint8)
+    lengths = rng.integers(0, l + 1, size=b).astype(np.int32)
+    special = [n for n in (l, 0, KSIZE - 1, KSIZE, KSIZE + 1, KSIZE - 1 + k, KSIZE + k) if n <= l]
+    special = special[:b]
+    lengths[: len(special)] = special
+    exact = [i for i, n in enumerate(special) if n in (KSIZE - 1 + k, KSIZE + k)]
+    others = np.arange(len(special), b)
+    for r in rng.choice(others, size=min(len(others), b // 40 + 1, 12), replace=False):
+        p = int(rng.integers(0, l))
+        codes[r, p : p + int(rng.integers(1, 40))] = 4
+    ends = rng.choice(others, size=min(len(others), b // 100 + 1, 80), replace=False)
+    codes[ends, np.maximum(lengths[ends] - 1, 0)] = 4
+    codes[ends, 0] = 4
+    keys = [canonical_kmers(codes[r, : lengths[r]])[0] for r in exact]
+    for r in range(0, b, 3):
+        if lengths[r] >= KSIZE:
+            p = int(rng.integers(0, lengths[r] - KSIZE + 1))
+            keys.append(canonical_kmers(codes[r, p : p + KSIZE])[0])
+    keys = np.concatenate(keys) if keys else np.zeros(0, np.uint64)
+    hi = (keys >> np.uint64(32)).astype(np.uint32)
+    lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    blk, bits = bloom_hashes(hi, lo, len(bloom), s4, s5)
+    flat = bloom.reshape(-1)
+    for bit in bits:
+        np.bitwise_or.at(flat, blk * 4 + (bit >> 5), np.uint32(1) << (bit & 31).astype(np.uint32))
+    return codes, lengths
+
+
 def gate_forms(rng, codes, lengths, device):
     """The rows as ReadPlanes in both input forms: packed words with the
     exception list in shuffled order, plus two entries the feeder never
@@ -432,8 +478,9 @@ def gate_forms(rng, codes, lengths, device):
     if packed is None:
         raise AssertionError("gate rows hold more invalid bases than the exception list")
     pads = np.nonzero(exc < 0)[0]
-    short = int(np.nonzero(lengths < l - 1)[0][0])
-    exc[pads[:2]] = (short * l + l - 1, b * l + 7)
+    short = np.nonzero(lengths < l - 1)[0]
+    extra = ([int(short[0]) * l + l - 1] if len(short) else []) + [b * l + 7]
+    exc[pads[: len(extra)]] = extra
     rng.shuffle(exc)
     plane = codes.copy()
     bad = plane >= 4
@@ -446,12 +493,60 @@ def gate_forms(rng, codes, lengths, device):
     }
 
 
+def gate_edges(device="cuda") -> int:
+    """gate.cu against its plain version, bit for bit, at GATE_EDGES in both
+    modes (extract with and without fstrand) and both input forms, on a
+    2^16-block filter; returns the max abs error."""
+    import torch
+
+    from kmer_id_tpu_torch.ops.gate import (
+        extract_cuda,
+        extract_plain,
+        gate_group,
+        window_gate_cuda,
+        window_gate_plain,
+    )
+    from kmer_id_tpu_torch.ops.words import u32_tensor
+
+    rng = np.random.default_rng(SEED + 4)
+    max_err = 0
+    for b, l, k in GATE_EDGES:
+        bloom_np, s4, s5 = gate_bloom(rng, 1 << 16)
+        codes, lengths = gate_edge_rows(rng, b, l, k, bloom_np, s4, s5)
+        db = {"bloom": u32_tensor(bloom_np, device), "fp_s4": s4, "fp_s5": s5}
+        for form, reads in gate_forms(rng, codes, lengths, device).items():
+            got = dict(zip(("wpos", "whi", "wlo", "npass"), window_gate_cuda(db, reads, k)))
+            want = dict(zip(("wpos", "whi", "wlo", "npass"), window_gate_plain(db, reads, k)))
+            wx = extract_plain(reads, fstrand=True)
+            got.update(extract_cuda(reads, fstrand=True))
+            want.update(wx)
+            g3 = extract_cuda(reads)
+            got.update({f"{n} (no fstrand)": g3[n] for n in ("hi", "lo", "valid")})
+            want.update({f"{n} (no fstrand)": wx[n] for n in ("hi", "lo", "valid")})
+            torch.cuda.synchronize()
+            for what, w in want.items():
+                g = got[what]
+                err = int((g.long() - w.long()).abs().max()) if g.numel() else 0
+                max_err = max(max_err, err)
+                if not torch.equal(g, w):
+                    raise AssertionError(f"gate.cu != plain at edge [{b}x{l}] k={k} {form}: "
+                                         f"{what} (max err {err})")
+        npass = want["npass"]
+        exact = l >= 30 + k and b >= 7
+        if exact and not (bool((npass == k).any()) and bool((npass == k + 1).any())):
+            raise AssertionError(f"edge rows [{b}x{l}]: no row with npass {k} and {k + 1}")
+        say(f"gate.cu edge [{b}x{l}] k={k} ({gate_group(b, l)} warps per row): bit-equal in "
+            f"both modes and forms (npass max {int(npass.max())})")
+    return max_err
+
+
 def gate_phase(device="cuda") -> dict:
     """csrc/gate.cu against its plain version, bit for bit, in both modes
     (extract mode with and without the fstrand plane) and both input forms
-    at the nx, long-lane and m3 shapes; device times of the kernel and the
-    plain version beside the bound.  Returns the numbers for the kernels
-    line (nx shape, packed form)."""
+    at the nx, long-lane and m3 shapes and at GATE_EDGES; device times of
+    the kernel and the plain version beside the bound and the sector floor
+    (the bound with each Bloom row a 32-byte sector).  Returns the numbers
+    for the kernels line (nx shape, packed form)."""
     import torch
 
     from kmer_id_tpu_torch.ops.gate import (
@@ -466,7 +561,7 @@ def gate_phase(device="cuda") -> dict:
 
     rng = np.random.default_rng(SEED + 3)
     bloom_np, s4, s5 = gate_bloom(rng)
-    max_err, report = 0, {}
+    max_err, report, sector = gate_edges(device), {}, {}
     for name, b, l, lens in GATE_SHAPES:
         codes, lengths = gate_rows(rng, b, l, lens, bloom_np, s4, s5)
         db = {"bloom": u32_tensor(bloom_np, device), "fp_s4": s4, "fp_s5": s5}
@@ -501,6 +596,8 @@ def gate_phase(device="cuda") -> dict:
                 else reads.codes.numel())
             p = l - 29
             g_bound = bound(in_bytes + 16 * valid + out_bytes, GATE_OPS_PER_WINDOW * b * p)
+            sector[("gate", name, form)] = bound(in_bytes + SECTOR * valid + out_bytes,
+                                                 GATE_OPS_PER_WINDOW * b * p)[0]
             x_bound = bound(in_bytes + b * p * 9, GATE_OPS_PER_WINDOW // 2 * b * p)
             xf_bound = bound(in_bytes + b * p * 10, GATE_OPS_PER_WINDOW // 2 * b * p)
             times = {
@@ -513,9 +610,11 @@ def gate_phase(device="cuda") -> dict:
                                     *xf_bound),
             }
             for mode, (k_ms, p_ms, b_ms, b_by) in times.items():
+                floor = (f", sector floor {sector[(mode, name, form)]} ms"
+                         if (mode, name, form) in sector else "")
                 say(f"gate.cu {mode} {name} [{b}x{l}] {form}: bit-equal ({valid} valid windows, "
                     f"npass max {int(npass.max())}, {int((npass > 0).sum())} rows passing); "
-                    f"device kernel {k_ms} ms, plain {p_ms} ms, bound {b_ms} ms ({b_by})")
+                    f"device kernel {k_ms} ms, plain {p_ms} ms, bound {b_ms} ms ({b_by}){floor}")
                 report[(mode, name, form)] = (k_ms, p_ms, b_ms, b_by)
 
     # a rank of the sharded engine's grid: gate mode to SHARD_BLOOM_K windows
@@ -544,11 +643,14 @@ def gate_phase(device="cuda") -> dict:
             else reads.codes.numel())
         b_ms, b_by = bound(in_bytes + 16 * valid + b * (3 * k + 1) * 4,
                            GATE_OPS_PER_WINDOW * b * (l - 29))
+        sector[("gate24", name, form)] = bound(in_bytes + SECTOR * valid + b * (3 * k + 1) * 4,
+                                               GATE_OPS_PER_WINDOW * b * (l - 29))[0]
         k_ms = device_ms(lambda: window_gate_cuda(db, reads, k))
         p_ms = device_ms(lambda: window_gate_plain(db, reads, k))
         say(f"gate.cu gate k={k} {name} [{b}x{l}] {form}, shard filter of {len(sbloom)} "
             f"blocks: bit-equal (npass max {int(npass.max())}); device kernel {k_ms} ms, plain "
-            f"{p_ms} ms, bound {b_ms} ms ({b_by})")
+            f"{p_ms} ms, bound {b_ms} ms ({b_by}), sector floor "
+            f"{sector[('gate24', name, form)]} ms")
         report[("gate24", name, form)] = (k_ms, p_ms, b_ms, b_by)
     return {"max_abs_err": max_err, "times": report}
 
@@ -2744,13 +2846,12 @@ def grid_rank(spec: dict) -> int:
     the sharded engine, its kernel launches counted from 0 just before it,
     the result written to ``spec["out"]``."""
     import torch
-    import torch.distributed as dist
 
     sys.path.insert(0, ROOT)
     from kmer_id_tpu_torch.config import ClassifyConfig
     from kmer_id_tpu_torch.engine.pipeline import run_nx
     from kmer_id_tpu_torch.parallel import ShardedFpClassifier, make_mesh
-    from kmer_id_tpu_torch.parallel.distributed import health_check, initialize
+    from kmer_id_tpu_torch.parallel.distributed import health_check, initialize, shutdown
 
     dev = torch.device(spec["device"])
     initialize(spec["coord"], spec["n"], spec["rank"], dev, backend="gloo")
@@ -2796,7 +2897,7 @@ def grid_rank(spec: dict) -> int:
     out["modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "kmer_id_tpu"))
     with open(spec["out"], "w") as f:
         json.dump(out, f)
-    dist.destroy_process_group()
+    shutdown()
     return 0
 
 
@@ -3135,7 +3236,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("window_gate", gate_src, "kmer_id_tpu/ops/compact.py:101",
               gr["times"][("gate", "nx", "packed")], gr["max_abs_err"],
-              {f"{n} {f}" + (" k=24" if m == "gate24" else ""): shape_times(t)
+              {f"{n} {f}" + (" k=24" if m == "gate24" else ""):
+               shape_times(t)
                for (m, n, f), t in gr["times"].items() if m in ("gate", "gate24")}),
         entry("window_extract", gate_src, "kmer_id_tpu/ops/extract.py:34",
               gr["times"][("extract", "nx", "packed")], gr["max_abs_err"],

@@ -305,14 +305,16 @@ def main(argv=None):
     if args.cmd in GRID_CMDS and args.mesh_data * args.mesh_db > 1 and not args.num_processes:
         return _spawn_ranks(argv, args)
     if getattr(args, "num_processes", None):
-        _join_grid(args)
-        try:
-            return _run(args)
-        finally:
-            import torch.distributed as dist
+        from kmer_id_tpu_torch.parallel.distributed import shutdown
 
-            if dist.is_initialized():
-                dist.destroy_process_group()
+        _join_grid(args)
+        ok = False
+        try:
+            rc = _run(args)
+            ok = True
+        finally:
+            shutdown(barrier=ok)
+        return rc
     return _run(args)
 
 

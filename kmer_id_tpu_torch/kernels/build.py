@@ -122,9 +122,9 @@ def load_gate():
     p = ctypes.c_void_p
     i = ctypes.c_int
     u = ctypes.c_uint32
-    lib.kmer_window_gate.argtypes = [p, i, p, i, p, p, i, i, p, u, u, u, i, p, p, p, p, p]
+    lib.kmer_window_gate.argtypes = [p, i, p, i, p, p, i, i, i, p, u, u, u, i, p, p, p, p, p]
     lib.kmer_window_gate.restype = ctypes.c_int
-    lib.kmer_window_extract.argtypes = [p, i, p, i, p, p, i, i, p, p, p, p, p]
+    lib.kmer_window_extract.argtypes = [p, i, p, i, p, p, i, i, i, p, p, p, p, p]
     lib.kmer_window_extract.restype = ctypes.c_int
     return lib
 

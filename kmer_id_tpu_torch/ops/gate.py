@@ -40,6 +40,23 @@ from kmer_id_tpu_torch.ops.lookup import bloom_pass
 
 BLOOM_K = 12  # per-read budget of Bloom-passing windows
 SHARD_BLOOM_K = 24  # the same on a rank of the sharded engine's grid
+FILL_WARPS = 4096  # rows x warps per row past which more warps per row do not pay
+
+
+def gate_group(rows: int, width: int) -> int:
+    """Warps per row of ``csrc/gate.cu`` for ``rows`` rows of ``width``
+    bases: one, doubled (up to 8) while the rows give fewer than
+    ``FILL_WARPS`` warps (~31 per SM of an H100's 132) and the row's windows
+    outnumber a step of the group's warps (the kernel's ``kChunks`` = 4
+    chunks of 32 windows each; nx [8192 x 160]: 1; lane and m3 [2048 x
+    512]: 2).  More warps per row cost each
+    its share of the staging and the exception list and idle on short
+    reads; on the H100 two per row beat four at both 2048-row shapes."""
+    chunks = -(-(width - KSIZE + 1) // 32)
+    g = 1
+    while g < 8 and rows * g < FILL_WARPS and g * 4 < chunks:
+        g *= 2
+    return g
 
 
 @dataclass
@@ -122,7 +139,8 @@ def window_gate_plain(db, reads: ReadPlanes, k: int = BLOOM_K):
 
 def _kernel_args(reads: ReadPlanes, name: str):
     """Checks a batch for csrc/gate.cu; returns its form's leading
-    arguments (packed, n_words, exc, n_exc, codes, lengths, rows, width)."""
+    arguments (packed, n_words, exc, n_exc, codes, lengths, rows, width,
+    warps per row)."""
     dev = reads.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: tensors on {dev}, not on a CUDA device")
@@ -144,7 +162,7 @@ def _kernel_args(reads: ReadPlanes, name: str):
     else:
         check("codes", reads.codes, torch.uint8, (b, l))
         lead = (None, 0, None, 0, ptr(reads.codes))
-    return lead + (ptr(reads.lengths), b, l)
+    return lead + (ptr(reads.lengths), b, l, gate_group(b, l))
 
 
 def window_gate_cuda(db, reads: ReadPlanes, k: int = BLOOM_K):

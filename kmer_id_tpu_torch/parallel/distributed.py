@@ -6,9 +6,10 @@ one process per device, the ranks of one (data x db) grid
 store at the coordinator (NCCL for a CUDA device, gloo for the CPU, unless
 told), :func:`health_check` probes the rank's device and runs one
 all-reduce as a startup barrier, so a dead peer shows there instead of as a
-later mid-batch hang.  :class:`SampleQueue` is a copy of the JAX package's
-(its module imports jax): samples are independent, so hosts may also split
-a run by claiming samples from a file-locked manifest.
+later mid-batch hang, and :func:`shutdown` leaves the group.
+:class:`SampleQueue` is a copy of the JAX package's (its module imports
+jax): samples are independent, so hosts may also split a run by claiming
+samples from a file-locked manifest.
 """
 
 from __future__ import annotations
@@ -46,6 +47,19 @@ def initialize(coordinator: str | None = None, num_processes: int | None = None,
     )
     log(f"distributed up: rank {dist.get_rank()}/{dist.get_world_size()} on {device} "
         f"({backend})")
+
+
+def shutdown(barrier: bool = True) -> None:
+    """Leave the process group (no-op without one): a barrier first, unless
+    told otherwise (a rank that failed may have peers that never reach it),
+    so that no rank tears down its gloo pairs while a peer may still use
+    them, then ``destroy_process_group``.  A rank that exits with its group
+    still up can abort in the teardown ("terminate called without an active
+    exception", SIGABRT; ``tools/grid_teardown.py`` counts how often)."""
+    if dist.is_available() and dist.is_initialized():
+        if barrier:
+            dist.barrier()
+        dist.destroy_process_group()
 
 
 def health_check(device="cuda") -> dict:

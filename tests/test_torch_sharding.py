@@ -69,7 +69,7 @@ from kmer_id_tpu_torch.engine.pipeline import SampleProcessor
 from kmer_id_tpu_torch.io.batch import Batch, LongRead, pack_codes
 from kmer_id_tpu_torch.parallel import ShardedClassifier, ShardedFpClassifier, make_mesh
 from kmer_id_tpu_torch.parallel import fpsharded
-from kmer_id_tpu_torch.parallel.distributed import health_check, initialize
+from kmer_id_tpu_torch.parallel.distributed import health_check, initialize, shutdown
 
 w = json.load(open(spec["world"]))
 keys = np.array(w["keys"], np.uint64)
@@ -151,6 +151,7 @@ for task in spec["tasks"]:
                    ucount=clf.ucount(seen).tolist())
         out[task] = res
 json.dump(out, open(spec["out"] % spec["rank"], "w"))
+shutdown()  # a rank that exits with its group up can abort in the teardown
 """
 
 
