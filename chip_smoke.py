@@ -2466,7 +2466,8 @@ def stage_phase(device, nx, clf, work=WORK) -> dict:
       thread) and of collect + account (collector thread), device ms of
       the H2D copies, the kernels and the D2H copies, and the device's busy
       share: the union of its intervals over the whole sample's wall;
-    * ucount: the finalize stage (max-merge of seen and seen_ovr, counts).
+    * finish: the profiled sample's ``sample.finish`` span (utils/timing.py:
+      the drain, the barrier, the stream syncs and ucount).
 
     Each run's window_gate launches must equal its batches."""
     import io
@@ -2554,7 +2555,7 @@ def stage_phase(device, nx, clf, work=WORK) -> dict:
            "d2h_ms_per_batch": d2h / nbs, "device_busy_ms": busy,
            "busy_share_profiled": busy / (pwall * 1e3),
            "busy_share_unprofiled": busy / (wall * 1e3),
-           "ucount_ms": res.stage_s.get("finalize", float("nan")) * 1e3,
+           "finish_ms": pres.stage_s["spans"]["sample.finish"]["wall_ns"] / 1e6,
            "launches": launches, "launches_per_batch": plaunches["window_gate"] / nbs,
            "device_launches_per_batch": sum(1 for e in dev if "Memcpy" not in e.name
                                             and "Memset" not in e.name) / nbs}
@@ -2567,7 +2568,7 @@ def stage_phase(device, nx, clf, work=WORK) -> dict:
         f"in {out['device_launches_per_batch']} launches/batch, D2H {out['d2h_ms_per_batch']} "
         f"ms/batch; device busy (union) {busy} ms = {100 * out['busy_share_profiled']}% of "
         f"the profiled wall, {100 * out['busy_share_unprofiled']}% of the unprofiled wall; "
-        f"ucount {out['ucount_ms']} ms (unprofiled run)")
+        f"finish {out['finish_ms']} ms (profiled run)")
     return out
 
 
@@ -3202,7 +3203,7 @@ def main() -> int:
         f"{st['d2h_ms_per_batch']} ms (device); device busy {st['device_busy_ms']} ms over the "
         f"whole sample = {100 * st['busy_share_profiled']}% of the profiled wall "
         f"({st['profiled_wall_s']} s), {100 * st['busy_share_unprofiled']}% of the unprofiled; "
-        f"ucount {st['ucount_ms']} ms")
+        f"finish {st['finish_ms']} ms")
     say(f"overlap reruns on {card}: {[(r['batches'], r['depth'], round(r['s'], 3)) for r in ov['reps']]} "
         f"(batches, depth, s), files equal RefSim's")
     say(f"build-db on the host ({card} for the classify): {bd['probes']} probes, in RAM "

@@ -14,7 +14,8 @@ Each subcommand takes the flags of its namesake in ``kmer_id_tpu.cli`` and
 writes the same files.  The classify subcommands take ``--batch-size
 --max-len --cache-dir --engine {fp,legacy} --profile DIR`` (a
 ``torch.profiler`` trace of classify-nx, classify-jobs and classify-m3,
-written as Chrome trace JSON into DIR) and ``--device``, which defaults to
+written as Chrome trace JSON into DIR, with the samples' ``kmerid::`` spans
+of utils/timing.py on every thread) and ``--device``, which defaults to
 ``cuda`` and fails when no CUDA device is present.  ``build-db`` runs on
 the host (numpy and the g++-built db/native library; ``--spill
 --spill-shard-bits --spill-batch-mb`` for the disk-spilled build).
@@ -51,7 +52,7 @@ import time
 
 from kmer_id_tpu_torch.config import ClassifyConfig
 from kmer_id_tpu_torch.utils.logging import log, set_verbosity
-from kmer_id_tpu_torch.utils.timing import profile_trace
+from kmer_id_tpu_torch.utils.timing import profile_trace, tracing
 
 GRID_CMDS = ("classify-nx", "classify-jobs", "readc")  # the subcommands that run a grid
 RANK_GRACE_S = 60.0  # after a rank fails, how long the others get to end
@@ -70,7 +71,8 @@ def _add_engine_args(p):
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a torch.profiler trace of the run to DIR")
+                   help="write a torch.profiler trace of the run, with the samples' "
+                   "kmerid:: spans, to DIR")
     p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:N, cpu)")
 
 
@@ -250,7 +252,8 @@ def main(argv=None):
     nx.add_argument("--fasta", action="store_true", help="FASTA mode (FASTQ=0)")
     nx.add_argument("--resume", action="store_true")
     nx.add_argument("--metrics", default=None, metavar="JSONL",
-                    help="write per-sample metrics to this JSONL file")
+                    help="write per-sample metrics, with each sample's spans and "
+                    "counters under 'stages', to this JSONL file")
     _add_engine_args(nx)
 
     vj = sub.add_parser("classify-jobs", help="vf6 job-based classification")
@@ -367,7 +370,7 @@ def _run(args) -> int:
             cache_dir=args.cache_dir,
         ))
         clf = _make_classifier(db, cfg, args)
-        with profile_trace(args.profile):
+        with profile_trace(args.profile), tracing(args.metrics):
             run_nx(args.fastq_dir, db, cfg, e1=args.e1, e2=args.e2,
                    fasta_mode=args.fasta, resume=args.resume, clf=clf,
                    metrics_path=args.metrics)

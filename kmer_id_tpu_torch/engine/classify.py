@@ -38,6 +38,7 @@ from kmer_id_tpu_torch.ops.gate import ReadPlanes, extract
 from kmer_id_tpu_torch.ops.lookup import cuckoo_lookup, lookup_keys
 from kmer_id_tpu_torch.ops.probe import mark_seen
 from kmer_id_tpu_torch.ops.words import u32_tensor
+from kmer_id_tpu_torch.utils import timing
 
 
 def classify_core(seen, db, tax, reads: ReadPlanes, bucket_bits: int, mode: str,
@@ -185,7 +186,7 @@ class Classifier:
             # seen again with the same hits)
             return self._run(seen, pending.codes, "targets", self.max_steps)[1].cpu().numpy()
 
-        finals = resolve_finals(self.taxonomy, pending.packed.cpu().numpy(), get_targets)
+        finals = resolve_finals(self.taxonomy, timing.fetch(pending.packed), get_targets)
         return seen, finals[: pending.n_rows]
 
     def process_batch(self, seen, batch: Batch):

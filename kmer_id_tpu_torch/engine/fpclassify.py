@@ -69,6 +69,7 @@ from kmer_id_tpu_torch.ops.probe import (
     probe_verify_dense,
 )
 from kmer_id_tpu_torch.ops.words import u32_tensor
+from kmer_id_tpu_torch.utils import timing
 
 LONG_HITS = 8  # long-read lane: per-chunk verified-hit budget
 _INT32_MIN, _INT32_MAX = -(2**31), 2**31 - 1
@@ -119,7 +120,9 @@ def _compact_verify(db, reads: ReadPlanes, max_hits: int, seen=None):
     bloom = "bloom" in db
     if bloom:
         wpos, whi, wlo, npass = window_gate(db, reads)
-        if int(npass.max()) <= BLOOM_K:  # host branch 1
+        with timing.sync():
+            dense = int(npass.max()) > BLOOM_K  # host branch 1
+        if not dense:
             return probe_verify(db, wpos, whi, wlo, max_hits, seen)
     ex = extract(reads)
     return probe_verify_dense(db, ex["hi"], ex["lo"], ex["valid"], max_hits, seen,
@@ -194,7 +197,9 @@ def fp_finals(db, reads: ReadPlanes, seen, max_hits: int):
     finals = torch.where(nh > 0, cv["dtgt"], 0)
     # host branch 3: the fold only when some read is inconsistent (a read
     # without hits is consistent)
-    if bool((~consistent).any()):
+    with timing.sync():
+        fold = bool((~consistent).any())
+    if fold:
         # consistent rows' fold results are discarded: zero their hits so
         # the fold's trip count follows the inconsistent rows only
         t_fold = torch.where(consistent[:, None], 0, cv["t"])
@@ -279,17 +284,18 @@ class FpClassifier:
         # candidate-overflow reads: exact per-window slot-plane replay
         ovr = np.nonzero(overflow)[0]
         if len(ovr):
-            plane_dev = fp_slots(self._db, self._reads(pending.codes))
-            _scatter_plane_seen(seen, plane_dev)
-            plane = plane_dev.cpu().numpy()
-            for r in ovr:
-                s = plane[r]
-                s = s[s >= 0]
-                finals[r] = fold_host(self.taxonomy, self.slot_target[s])
+            with timing.span(timing.current(), "collect.replay"):
+                plane_dev = fp_slots(self._db, self._reads(pending.codes))
+                _scatter_plane_seen(seen, plane_dev)
+                plane = plane_dev.cpu().numpy()
+                for r in ovr:
+                    s = plane[r]
+                    s = s[s >= 0]
+                    finals[r] = fold_host(self.taxonomy, self.slot_target[s])
         return seen, finals[: pending.n_rows]
 
     def collect(self, seen, pending: PendingBatch):
-        return self._finish_collect(seen, pending.packed.cpu().numpy(), pending)
+        return self._finish_collect(seen, timing.fetch(pending.packed), pending)
 
     def collect_many(self, seen, pendings: list):
         """:meth:`collect` of several pending batches with one
@@ -300,7 +306,7 @@ class FpClassifier:
         if len(pendings) == 1:
             seen, finals = self.collect(seen, pendings[0])
             return seen, [finals]
-        fetched = torch.cat([p.packed for p in pendings]).cpu().numpy()
+        fetched = timing.fetch(torch.cat([p.packed for p in pendings]))
         out, off = [], 0
         for p in pendings:
             n = p.packed.shape[0]

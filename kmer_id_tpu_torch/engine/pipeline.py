@@ -40,7 +40,7 @@ from kmer_id_tpu_torch.db.probes import (
 )
 from kmer_id_tpu_torch.io.batch import Batch, LongRead, ReadBatcher
 from kmer_id_tpu_torch.utils.logging import log
-from kmer_id_tpu_torch.utils.timing import StageTimers
+from kmer_id_tpu_torch.utils import timing
 from kmer_id_tpu_torch.engine.classify import Classifier
 from kmer_id_tpu_torch.engine.fpclassify import FpClassifier
 from kmer_id_tpu_torch.ops.gate import ReadPlanes
@@ -153,7 +153,8 @@ class SampleResult:
     ucount: np.ndarray  # int64 [num_targ]
     reads: int  # processed read count
     wall_s: float = 0.0
-    stage_s: dict = field(default_factory=dict)
+    stage_s: dict = field(default_factory=dict)  # the trace's summary; {} untraced
+    trace: Optional[timing.SampleTrace] = None  # write_result's span goes here
 
 
 class SampleProcessor:
@@ -194,6 +195,11 @@ class SampleProcessor:
     rank calls the collectives in the same order.  Long reads run on
     the grid too.
 
+    A traced sample (utils/timing.py: the switch, or a recording profiler,
+    as it is built) records its spans and counters in :attr:`trace`: each
+    worker job runs with it as the thread's current trace, and each batch
+    keeps its feeder's emit order as its id from decode to collect.
+
     Under ``cfg.minalign > 0`` (a legacy engine) there are no workers:
     everything runs on the calling thread, in read order.  The Python feed
     is forced, since the replay needs each read's untrimmed length and trim
@@ -213,59 +219,62 @@ class SampleProcessor:
     ):
         from kmer_id_tpu_torch.io.native_feed import NativePlaneFeeder, native_available
 
-        self.clf = clf
-        self.cfg = cfg
-        self.reads_out = reads_out
-        self.target_reads_out = target_reads_out
-        self.gcount = np.zeros(clf.num_targ, dtype=np.int64)
-        self.reads = 0
-        self.seen = clf.new_seen()
-        # the collector's own unique-k-mer set (overflow replays, long
-        # reads): each worker marks one, and a set union is exact as a
-        # max-merge at finish
-        self.seen_ovr = clf.new_seen()
-        self.batcher = ReadBatcher(clf.batch_size, clf.max_len, u_is_t=cfg.u_is_t)
-        if cfg.minalign > 0:
-            use_native = False
-        self.native = native_available() if use_native is None else use_native
-        self._feeder = (
-            NativePlaneFeeder(clf.batch_size, clf.max_len, cfg.u_is_t)
-            if self.native
-            else None
-        )
-        overlap = cfg.minalign == 0 and world_size() == 1
-        self.pipeline_depth = 4 if overlap else 0  # collector jobs in flight
-        self.collect_group = 4 if hasattr(clf, "collect_many") and overlap else 1
-        self._group: list = []  # [(pending, batch, event)] awaiting a group job
-        self._inflight: deque = deque()  # the collector's futures, FIFO
-        self._sub_q: deque = deque()  # the submitter's futures, FIFO
-        self._submitter = self._collector = None
-        if overlap:
-            self._submitter = ThreadPoolExecutor(1, thread_name_prefix="kmer-submit")
-            self._collector = ThreadPoolExecutor(1, thread_name_prefix="kmer-collect")
-        self._sub_stream = self._col_stream = None
-        device = torch.device(clf.device)
-        if overlap and device.type == "cuda":
-            # seen, seen_ovr and the engine's tables were made on the
-            # calling thread's stream: both worker streams start after it
-            made = torch.cuda.current_stream(device)
-            self._sub_stream = torch.cuda.Stream(device)
-            self._col_stream = torch.cuda.Stream(device)
-            for stream, marks in ((self._sub_stream, self.seen), (self._col_stream, self.seen_ovr)):
-                stream.wait_stream(made)
-                marks.record_stream(stream)
-        self.timers = StageTimers()
-        self._t_start = time.monotonic()
-        self._verify = None
-        if cfg.minalign > 0:
-            from kmer_id_tpu_torch.engine.verify import AlignVerifier, GenomeCache
+        self.trace = timing.new_trace()  # None untraced (utils/timing.py)
+        self._items = 0  # the Python feed's items, in order: their batch ids
+        with timing.span(self.trace, "sample.start"):
+            self.clf = clf
+            self.cfg = cfg
+            self.reads_out = reads_out
+            self.target_reads_out = target_reads_out
+            self.gcount = np.zeros(clf.num_targ, dtype=np.int64)
+            self.reads = 0
+            self.seen = clf.new_seen()
+            # the collector's own unique-k-mer set (overflow replays, long
+            # reads): each worker marks one, and a set union is exact as a
+            # max-merge at finish
+            self.seen_ovr = clf.new_seen()
+            self.batcher = ReadBatcher(clf.batch_size, clf.max_len, u_is_t=cfg.u_is_t)
+            if cfg.minalign > 0:
+                use_native = False
+            self.native = native_available() if use_native is None else use_native
+            self._feeder = (
+                NativePlaneFeeder(clf.batch_size, clf.max_len, cfg.u_is_t, trace=self.trace)
+                if self.native
+                else None
+            )
+            overlap = cfg.minalign == 0 and world_size() == 1
+            self.pipeline_depth = 4 if overlap else 0  # collector jobs in flight
+            self.collect_group = 4 if hasattr(clf, "collect_many") and overlap else 1
+            self._group: list = []  # [(pending, batch, event, batch id)] awaiting a group job
+            self._inflight: deque = deque()  # the collector's futures, FIFO
+            self._sub_q: deque = deque()  # the submitter's futures, FIFO
+            self._submitter = self._collector = None
+            if overlap:
+                self._submitter = ThreadPoolExecutor(1, thread_name_prefix="kmer-submit")
+                self._collector = ThreadPoolExecutor(1, thread_name_prefix="kmer-collect")
+            self._sub_stream = self._col_stream = None
+            device = torch.device(clf.device)
+            if overlap and device.type == "cuda":
+                # seen, seen_ovr and the engine's tables were made on the
+                # calling thread's stream: both worker streams start after it
+                made = torch.cuda.current_stream(device)
+                self._sub_stream = torch.cuda.Stream(device)
+                self._col_stream = torch.cuda.Stream(device)
+                for stream, marks in ((self._sub_stream, self.seen),
+                                      (self._col_stream, self.seen_ovr)):
+                    stream.wait_stream(made)
+                    marks.record_stream(stream)
+            self._t_start = time.monotonic()
+            self._verify = None
+            if cfg.minalign > 0:
+                from kmer_id_tpu_torch.engine.verify import AlignVerifier, GenomeCache
 
-            genomes = GenomeCache(cfg.fadir, cfg.accessions or [], u_is_t=cfg.u_is_t)
-            self._verify = {
-                "verifier": AlignVerifier(genomes, clf.packed_db, cfg.minalign),
-                "ucount": np.zeros(clf.num_targ, dtype=np.int64),
-                "kmer_seen": set(),
-            }
+                genomes = GenomeCache(cfg.fadir, cfg.accessions or [], u_is_t=cfg.u_is_t)
+                self._verify = {
+                    "verifier": AlignVerifier(genomes, clf.packed_db, cfg.minalign),
+                    "ucount": np.zeros(clf.num_targ, dtype=np.int64),
+                    "kmer_seen": set(),
+                }
 
     def feed(self, records: Iterable) -> None:
         for acc, seq, qual in records:
@@ -276,9 +285,8 @@ class SampleProcessor:
         """Stream one read file (extension-dispatched, vf6:1133-1152; pass
         ``fmt`` to force a parser, as the nx driver does for FASTQ)."""
         if self._feeder is not None:
-            with self.timers.stage("decode+classify"):
-                for nb in self._feeder.feed_path(str(path), fmt=fmt):
-                    self._enqueue(self._consume_native, nb)
+            for nb in self._feeder.feed_path(str(path), fmt=fmt):
+                self._enqueue(self._consume_native, nb)
             return
         from kmer_id_tpu_torch.io import fastx
         from kmer_id_tpu_torch.io.native import detect_format
@@ -294,60 +302,64 @@ class SampleProcessor:
             self.feed(iters[fmt](str(path)))
 
     def finish(self) -> SampleResult:
-        try:
-            if self._feeder is not None:
-                for nb in self._feeder.flush():
-                    self._enqueue(self._consume_native, nb)
-            for item in self.batcher.flush():
-                self._enqueue(self._consume, item)
-            self._drain_submits()
-            if self._submitter is not None:
-                self._submitter.shutdown(wait=True)
-            self._barrier()
-        finally:
-            self._shutdown()
-        if self._verify is not None:
-            ucount = self._verify["ucount"]
-        else:
-            with self.timers.stage("finalize"):
+        with timing.span(self.trace, "sample.finish"):
+            try:
+                if self._feeder is not None:
+                    for nb in self._feeder.flush():
+                        self._enqueue(self._consume_native, nb)
+                for item in self.batcher.flush():
+                    self._enqueue(self._consume, item)
+                self._drain_submits()
+                if self._submitter is not None:
+                    self._submitter.shutdown(wait=True)
+                self._barrier()
+            finally:
+                self._shutdown()
+            if self._verify is not None:
+                ucount = self._verify["ucount"]
+            else:
                 for stream in (self._sub_stream, self._col_stream):
                     if stream is not None:
                         stream.synchronize()
                 ucount = self.clf.ucount(torch.maximum(self.seen, self.seen_ovr))
         wall = time.monotonic() - self._t_start
+        stages = self.trace.finish() if self.trace is not None else {}
         classified = int(self.reads - (self.gcount[0] if len(self.gcount) else 0))
         log(
             f"sample done: {self.reads} reads in {wall:.2f}s "
             f"({self.reads / max(wall, 1e-9):,.0f} r/s, "
             f"{100.0 * classified / max(self.reads, 1):.1f}% classified) "
-            f"stages={self.timers.summary()}",
+            f"stages={stages}",
             level=2,
         )
         return SampleResult(
             gcount=self.gcount, ucount=ucount, reads=self.reads,
-            wall_s=wall, stage_s=self.timers.summary(),
+            wall_s=wall, stage_s=stages, trace=self.trace,
         )
 
     # ------------------------------------------------------------ workers
-    @staticmethod
-    def _on_stream(stream, fn, *a):
-        """``fn(*a)`` with ``stream`` (on its device) as the thread's
+    def _on_stream(self, stream, fn, *a):
+        """``fn(*a)`` with the sample's trace as the thread's current trace
+        and ``stream`` (on its device; None: the thread's own) as its
         current stream; a worker thread starts on device 0's default
         stream."""
-        if stream is None:
-            return fn(*a)
-        with torch.cuda.device(stream.device), torch.cuda.stream(stream):
-            return fn(*a)
+        with timing.using(self.trace):
+            if stream is None:
+                return fn(*a)
+            with torch.cuda.device(stream.device), torch.cuda.stream(stream):
+                return fn(*a)
 
     def _enqueue(self, fn, *a) -> None:
         """Run a consume step on the submitter thread (FIFO, at most 6
         queued), or inline without workers."""
         if self._submitter is None:
-            fn(*a)
+            self._on_stream(None, fn, *a)
             return
         self._sub_q.append(self._submitter.submit(self._on_stream, self._sub_stream, fn, *a))
-        while len(self._sub_q) > 6:
-            self._result(self._sub_q.popleft())
+        if len(self._sub_q) > 6:
+            with timing.span(self.trace, "feed.wait"):
+                while len(self._sub_q) > 6:
+                    self._result(self._sub_q.popleft())
 
     def _result(self, fut) -> None:
         """A submitter future's result, read on the calling thread; on an
@@ -373,11 +385,13 @@ class SampleProcessor:
         """Queue a collector job (inline without workers), then hold the
         jobs in flight to ``pipeline_depth``."""
         if self._collector is None:
-            fn(*a)
+            self._on_stream(None, fn, *a)
             return
         self._inflight.append(self._collector.submit(self._on_stream, self._col_stream, fn, *a))
-        while len(self._inflight) > self.pipeline_depth:
-            self._inflight.popleft().result()
+        if len(self._inflight) > self.pipeline_depth:
+            with timing.span(self.trace, "submit.wait"):
+                while len(self._inflight) > self.pipeline_depth:
+                    self._inflight.popleft().result()
 
     def _submitted(self):
         """An event after the submitter stream's work so far (None off the
@@ -407,81 +421,110 @@ class SampleProcessor:
     def _consume(self, item) -> None:
         """Python-batcher path: a short-read batch joins the group, a long
         read flushes the group and goes to the collector."""
-        if self._verify is not None and isinstance(item, Batch):
-            self._replay_verify(item)
-        elif isinstance(item, LongRead):
-            self._flush_group()  # account order = read order
-            self._collect(self._long_job, item)
-        else:
-            self.seen, pending = self.clf.submit_batch(self.seen, item)
-            self._group.append((pending, item, self._submitted()))
-            if len(self._group) >= self.collect_group:
-                self._flush_group()
+        bid, self._items = self._items, self._items + 1
+        with timing.span(self.trace, "submit", bid):
+            if self._verify is not None and isinstance(item, Batch):
+                self._count(item.n_rows)
+                self._replay_verify(item)
+            elif isinstance(item, LongRead):
+                self._flush_group("flush.long")  # account order = read order
+                self._collect(self._long_job, item, bid)
+            else:
+                self._count(item.n_rows)
+                self.seen, pending = self.clf.submit_batch(self.seen, item)
+                self._group.append((pending, item, self._submitted(), bid))
+                if len(self._group) >= self.collect_group:
+                    self._flush_group("flush.full")
 
     def _consume_native(self, nb) -> None:
         """A native batch: its short rows through the engine; with long rows
         (placeholders of length 0 in the device batch) the group is flushed
         and the batch collected alone with its long rows (:meth:`_drain_job`)."""
-        batch = nb.batch
-        self.seen, pending = self.clf.submit_batch(self.seen, batch)
-        ev = self._submitted()
-        if not nb.long_rows:
-            self._group.append((pending, batch, ev))
-            if len(self._group) >= self.collect_group:
-                self._flush_group()
-        else:
-            self._flush_group()  # account order = read order
-            self._collect(self._drain_job, pending, ev, nb)
+        with timing.span(self.trace, "submit", nb.bid):
+            batch = nb.batch
+            self._count(batch.n_rows)
+            self.seen, pending = self.clf.submit_batch(self.seen, batch)
+            ev = self._submitted()
+            if not nb.long_rows:
+                self._group.append((pending, batch, ev, nb.bid))
+                if len(self._group) >= self.collect_group:
+                    self._flush_group("flush.full")
+            else:
+                self._flush_group("flush.long")  # account order = read order
+                self._collect(self._drain_job, pending, ev, nb)
 
-    def _flush_group(self) -> None:
+    def _count(self, rows: int) -> None:
+        """A short-read batch's counters: ``batches`` and ``rows`` (its long
+        rows' placeholders included)."""
+        tr = self.trace
+        if tr is not None:
+            tr.add("batches")
+            tr.add("rows", rows)
+
+    def _flush_group(self, why: str) -> None:
+        """Close the group into a collector job; ``why`` is the trace's
+        counter of the reason (``flush.full``, ``flush.long``,
+        ``flush.finish``)."""
         if self._group:
             grp, self._group = self._group, []
+            timing.count(self.trace, why)
             self._collect(self._group_job, grp)
 
     def _barrier(self) -> None:
         """Wait for every queued collector job (order/exception barrier)."""
-        self._flush_group()
+        self._flush_group("flush.finish")
         while self._inflight:
             self._inflight.popleft().result()
 
     def _group_job(self, grp) -> None:
-        for pending, _, ev in grp:
-            self._receive(pending, ev)
-        if len(grp) == 1 or not hasattr(self.clf, "collect_many"):
-            for pending, batch, _ in grp:
-                self.seen_ovr, finals = self.clf.collect(self.seen_ovr, pending)
-                self._account_batch(finals[: batch.n_rows], batch.metas)
-            return
-        self.seen_ovr, finals_list = self.clf.collect_many(self.seen_ovr, [p for p, _, _ in grp])
-        for (_, batch, _), finals in zip(grp, finals_list):
-            self._account_batch(finals, batch.metas)
+        with timing.span(self.trace, "collect", grp[0][3]):
+            for pending, _, ev, _ in grp:
+                self._receive(pending, ev)
+            if len(grp) == 1 or not hasattr(self.clf, "collect_many"):
+                for pending, batch, _, bid in grp:
+                    self.seen_ovr, finals = self.clf.collect(self.seen_ovr, pending)
+                    with timing.span(self.trace, "collect.account", bid):
+                        self._account_batch(finals[: batch.n_rows], batch.metas)
+                return
+            self.seen_ovr, finals_list = self.clf.collect_many(self.seen_ovr,
+                                                               [g[0] for g in grp])
+            for (_, batch, _, bid), finals in zip(grp, finals_list):
+                with timing.span(self.trace, "collect.account", bid):
+                    self._account_batch(finals, batch.metas)
 
-    def _long_job(self, item: LongRead) -> None:
-        self.seen_ovr, final = self.clf.process_long(self.seen_ovr, item)
-        self._account(int(final), item.meta)
+    def _long_job(self, item: LongRead, bid: int) -> None:
+        with timing.span(self.trace, "collect", bid):
+            with timing.span(self.trace, "collect.lane"):
+                self.seen_ovr, final = self.clf.process_long(self.seen_ovr, item)
+            with timing.span(self.trace, "collect.account"):
+                self._account(int(final), item.meta)
 
     def _drain_job(self, pending, ev, nb) -> None:
         """A native batch with long rows: its short rows' finals, its long
         rows through the long-read lane together, every row accounted in
         read order."""
-        self._receive(pending, ev)
-        self.seen_ovr, finals = self.clf.collect(self.seen_ovr, pending)
-        batch = nb.batch
-        metas = batch.metas
-        long_items = [LongRead(meta=None, codes=metas.seq_codes(i, self.cfg.u_is_t))
-                      for i in nb.long_rows]
-        if hasattr(self.clf, "process_long_many"):
-            self.seen_ovr, long_finals = self.clf.process_long_many(self.seen_ovr, long_items)
-        else:  # the legacy engine: one read at a time
-            long_finals = []
-            for item in long_items:
-                self.seen_ovr, f = self.clf.process_long(self.seen_ovr, item)
-                long_finals.append(f)
-        final = finals[: batch.n_rows].tolist()
-        for i, f in zip(nb.long_rows, long_finals):
-            final[i] = f
-        for i, f in enumerate(final):
-            self._account(int(f), None, metas, i)
+        with timing.span(self.trace, "collect", nb.bid):
+            self._receive(pending, ev)
+            self.seen_ovr, finals = self.clf.collect(self.seen_ovr, pending)
+            batch = nb.batch
+            metas = batch.metas
+            long_items = [LongRead(meta=None, codes=metas.seq_codes(i, self.cfg.u_is_t))
+                          for i in nb.long_rows]
+            with timing.span(self.trace, "collect.lane"):
+                if hasattr(self.clf, "process_long_many"):
+                    self.seen_ovr, long_finals = self.clf.process_long_many(self.seen_ovr,
+                                                                            long_items)
+                else:  # the legacy engine: one read at a time
+                    long_finals = []
+                    for item in long_items:
+                        self.seen_ovr, f = self.clf.process_long(self.seen_ovr, item)
+                        long_finals.append(f)
+            with timing.span(self.trace, "collect.account"):
+                final = finals[: batch.n_rows].tolist()
+                for i, f in zip(nb.long_rows, long_finals):
+                    final[i] = f
+                for i, f in enumerate(final):
+                    self._account(int(f), None, metas, i)
 
     def _replay_verify(self, batch: Batch) -> None:
         """The exact ``minalign > 0`` replay of a batch (engine/verify.py),
@@ -563,10 +606,14 @@ class SampleProcessor:
 
 def write_result(path: str, result: SampleResult) -> None:
     """``<sample>_result.txt``: one ``t,gcount,ucount`` line per target
-    (``newkmer_10nx.cpp:1040-1043``)."""
-    with open(path, "w") as f:
-        for i in range(len(result.gcount)):
-            f.write(f"{i},{result.gcount[i]},{result.ucount[i]}\n")
+    (``newkmer_10nx.cpp:1040-1043``).  Its span (``sample.write``) goes into
+    the result's trace, whose summary then counts it."""
+    with timing.span(result.trace, "sample.write"):
+        with open(path, "w") as f:
+            for i in range(len(result.gcount)):
+                f.write(f"{i},{result.gcount[i]},{result.ucount[i]}\n")
+    if result.trace is not None:
+        result.trace.summarise()
 
 
 def run_nx(

@@ -24,6 +24,7 @@ import numpy as np
 from kmer_id_tpu_torch.io.batch import Batch, RowMeta, pack_codes
 from kmer_id_tpu_torch.io.native import NativeFileReader, detect_format, get_lib
 from kmer_id_tpu_torch.core.codec import CODE_LUT, CODE_LUT_U, INVALID
+from kmer_id_tpu_torch.utils import timing
 
 
 def native_available() -> bool:
@@ -61,16 +62,23 @@ class BlobMetas:
 class NativeBatch:
     batch: Batch
     long_rows: list[int]  # row indices whose true read exceeds max_len
+    bid: int = -1  # the batch's id: the feeder's emit order
 
 
 class NativePlaneFeeder:
-    """Feeds read files through the native decoder into full planes."""
+    """Feeds read files through the native decoder into full planes.
+
+    With a ``trace`` (utils/timing.py) each ``NativeFileReader.fill`` is a
+    ``decode.fill`` span and each emitted batch's packing a ``decode.pack``
+    span, both under the id of the batch being filled."""
 
     def __init__(self, batch_size: int, max_len: int, u_is_t: bool,
-                 acc_cap_per_row: int = 256, seq_cap_per_row: int = 1024):
+                 acc_cap_per_row: int = 256, seq_cap_per_row: int = 1024, trace=None):
         self.b = batch_size
         self.l = max_len
         self.u_is_t = u_is_t
+        self.trace = trace
+        self.emitted = 0  # batches emitted so far: the next batch's id
         self._new_plane()
         self.acc_cap = self.b * acc_cap_per_row
         self.seq_cap = self.b * seq_cap_per_row
@@ -85,6 +93,12 @@ class NativePlaneFeeder:
         self.row = 0
 
     def _emit(self) -> NativeBatch:
+        with timing.span(self.trace, "decode.pack", self.emitted):
+            nb = self._pack()
+        self.emitted += 1
+        return nb
+
+    def _pack(self) -> NativeBatch:
         n = self.row
         metas = BlobMetas(
             self.acc_buf[: self.acc_off[n]].copy(),
@@ -105,7 +119,7 @@ class NativePlaneFeeder:
         self._new_plane()
         self.acc_off[0] = 0
         self.seq_off[0] = 0
-        return NativeBatch(batch=batch, long_rows=long_rows)
+        return NativeBatch(batch=batch, long_rows=long_rows, bid=self.emitted)
 
     def feed_path(self, path: str, fmt: str | None = None) -> Iterator[NativeBatch]:
         fmt = fmt or detect_format(path)
@@ -114,10 +128,11 @@ class NativePlaneFeeder:
         reader = NativeFileReader(path, fmt, self.u_is_t)
         try:
             while True:
-                filled, eof = reader.fill(
-                    self.row, self.codes, self.lengths,
-                    self.acc_buf, self.acc_off, self.seq_buf, self.seq_off,
-                )
+                with timing.span(self.trace, "decode.fill", self.emitted):
+                    filled, eof = reader.fill(
+                        self.row, self.codes, self.lengths,
+                        self.acc_buf, self.acc_off, self.seq_buf, self.seq_off,
+                    )
                 self.row += filled
                 if self.row >= self.b:
                     yield self._emit()

@@ -23,6 +23,8 @@ import time
 
 import torch
 
+from kmer_id_tpu_torch.utils import timing
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kmer_id_tpu_torch")
@@ -63,8 +65,9 @@ def build_many(names) -> dict:
     (0 when the library was already built) and the compiler's
     ``-Xptxas -v`` report.  Safe to call from several threads: the
     pipeline's submitter and collector may both reach a kernel first.
+    In the thread's trace the call is a ``kernel.build`` span.
     """
-    with _BUILD_LOCK:
+    with timing.span(timing.current(), "kernel.build"), _BUILD_LOCK:
         return _build_many(names)
 
 

@@ -24,6 +24,7 @@ import math
 import torch
 
 from kmer_id_tpu_torch.ops.compact import compact_ranks
+from kmer_id_tpu_torch.utils import timing
 
 SENT = 2**31 - 1
 
@@ -49,7 +50,8 @@ def fold_targets_chain(chain3, targets, ttin, tout):
     ttin = ttin.to(torch.int32)
     tout = tout.to(torch.int32)
     col = torch.arange(1, p + 1, device=t.device, dtype=torch.int32)
-    steps = int(((t > 0) * col).max()) if b else 0
+    with timing.sync():
+        steps = int(((t > 0) * col).max()) if b else 0
     f = torch.zeros(b, dtype=torch.int32, device=t.device)
     ftin = torch.full((b,), SENT, dtype=torch.int32, device=t.device)
     ftout = torch.full((b,), -1, dtype=torch.int32, device=t.device)
