@@ -7,7 +7,11 @@ zero-copy NumPy buffers.  Falls back cleanly (``get_lib() is None``) when no
 compiler is available — io/batch.py's pure-Python path remains the
 behavioral reference.
 
-Copy of ``kmer_id_tpu/io/native/`` (this module and ``fastx_native.cpp``).
+Started as a copy of ``kmer_id_tpu/io/native/`` (this module and
+``fastx_native.cpp``).  Where it differs: the fill
+(``fx_next_batch_packed``) also writes the batch's packed 2-bit words and
+exception list, the form ``io/batch.py:pack_codes`` gives, in the pass that
+encodes each row.
 """
 
 from __future__ import annotations
@@ -66,10 +70,11 @@ def get_lib():
     lib.fx_open.restype = ctypes.c_void_p
     lib.fx_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
     lib.fx_close.argtypes = [ctypes.c_void_p]
-    lib.fx_next_batch.restype = ctypes.c_int
-    lib.fx_next_batch.argtypes = [
+    lib.fx_next_batch_packed.restype = ctypes.c_int
+    lib.fx_next_batch_packed.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
         ctypes.c_void_p,
@@ -109,15 +114,27 @@ class NativeFileReader:
             raise FileNotFoundError(path)
 
     def fill(self, row0: int, codes: np.ndarray, lengths: np.ndarray,
+             packed: np.ndarray, exc: np.ndarray, n_exc: np.ndarray,
              acc_buf: np.ndarray, acc_off: np.ndarray,
              seq_buf: np.ndarray, seq_off: np.ndarray) -> tuple[int, bool]:
-        """Fill rows [row0, B); returns (rows_filled, eof)."""
+        """Fill rows [row0, B) of ``codes`` and of their packed words
+        (uint32 [B, ceil(L/16)]), appending the rows' in-length non-ACGT
+        positions to ``exc`` (int32 [cap]) after the ``n_exc[0]`` there
+        (``n_exc[0]`` keeps counting past the cap); returns (rows_filled,
+        eof)."""
         b, l = codes.shape
+        if (packed.shape != (b, (l + 15) // 16) or packed.dtype != np.uint32
+                or not packed.flags.c_contiguous or exc.dtype != np.int32
+                or n_exc.dtype != np.int32):
+            raise ValueError("packed words or exception list do not fit the code plane")
         eof = ctypes.c_int32(0)
-        n = self.lib.fx_next_batch(
+        n = self.lib.fx_next_batch_packed(
             self.handle, row0, b, l, self.u_is_t,
             codes.ctypes.data_as(ctypes.c_void_p),
             lengths.ctypes.data_as(ctypes.c_void_p),
+            packed.ctypes.data_as(ctypes.c_void_p),
+            exc.ctypes.data_as(ctypes.c_void_p), len(exc),
+            n_exc.ctypes.data_as(ctypes.c_void_p),
             acc_buf.ctypes.data_as(ctypes.c_void_p), acc_buf.nbytes,
             acc_off.ctypes.data_as(ctypes.c_void_p),
             seq_buf.ctypes.data_as(ctypes.c_void_p), seq_buf.nbytes,

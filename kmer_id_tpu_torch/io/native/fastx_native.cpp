@@ -14,9 +14,18 @@
 //     FASTA: sequence length > KSIZE),
 //   * encode the trimmed subsequence to 2-bit codes (4 = invalid) into the
 //     caller's [B, L] plane, left-justified,
+//   * pack the row's codes into the device's transfer form in the same pass,
+//     while the row is in cache: the [B, ceil(L/16)] uint32 plane of 2-bit
+//     words (code & 3, 16 a word, low bits first; padding packs as 0) and
+//     the exception list of flat row * L + pos of every non-ACGT code within
+//     the row's length, carried with its count across calls (entries stop at
+//     the list's capacity, the count does not),
 //   * stash the accession and trimmed sequence text (saved-read capture).
 // Reads longer than L report their full length; the caller rebuilds them
-// from the stashed text for the chunked long-read path.
+// from the stashed text for the chunked long-read path.  Their truncated
+// codes pack as any row's, and they add no exceptions (their device length
+// is 0).  The words and the list equal io/batch.py:pack_codes of the code
+// plane at each row's device length.
 //
 // Build: g++ -O3 -shared -fPIC fastx_native.cpp -o libfastx.so -lz
 
@@ -267,6 +276,21 @@ struct Reader {
   }
 };
 
+// 8 codes (one per byte, each < 8) -> their 2-bit fields, low code first.
+inline uint32_t pack8(uint64_t x) {
+  x &= 0x0303030303030303ULL;
+  x |= x >> 6;   // byte j: code j | code j+1 << 2
+  x |= x >> 12;  // bytes 0 and 4: four codes each
+  return (uint32_t)(x & 0xFF) | (uint32_t)((x >> 24) & 0xFF00);
+}
+
+inline uint32_t pack16(const uint8_t* c) {
+  uint64_t lo, hi;
+  memcpy(&lo, c, 8);
+  memcpy(&hi, c + 8, 8);
+  return pack8(lo) | (pack8(hi) << 16);
+}
+
 }  // namespace
 
 extern "C" {
@@ -291,18 +315,25 @@ void fx_close(void* h) {
   delete r;
 }
 
-// Fill rows [row0, B) of a [B, L] code plane.
+// Fill rows [row0, B) of a [B, L] code plane and of its [B, ceil(L/16)]
+// plane of packed words; append the rows' exceptions to exc[*n_exc...]
+// (entries written below exc_cap, *n_exc counts them all).
 // Returns number of rows filled this call; *eof set when the file is done.
 // Text blobs: acc/seq bytes appended with (B+1)-length offset arrays
 // (caller guarantees capacity; on overflow returns -1).
-int fx_next_batch(void* h, int row0, int batch, int max_len, int u_is_t,
-                  uint8_t* codes, int32_t* lengths, char* acc_buf,
-                  int64_t acc_cap, int64_t* acc_off, char* seq_buf,
-                  int64_t seq_cap, int64_t* seq_off, int32_t* eof) {
+int fx_next_batch_packed(void* h, int row0, int batch, int max_len, int u_is_t,
+                         uint8_t* codes, int32_t* lengths, uint32_t* packed,
+                         int32_t* exc, int32_t exc_cap, int32_t* n_exc,
+                         char* acc_buf, int64_t acc_cap, int64_t* acc_off,
+                         char* seq_buf, int64_t seq_cap, int64_t* seq_off,
+                         int32_t* eof) {
   Reader* r = (Reader*)h;
   const uint8_t* lut = g_lut[u_is_t ? 1 : 0];
+  const int words = (max_len + 15) / 16;
+  const int full = max_len / 16;  // words with all 16 codes inside the row
   *eof = 0;
   int row = row0;
+  int32_t nexc = *n_exc;
   if (row == 0) {
     acc_off[0] = 0;
     seq_off[0] = 0;
@@ -334,10 +365,32 @@ int fx_next_batch(void* h, int row0, int batch, int max_len, int u_is_t,
     lengths[row] = n;
     uint8_t* out = codes + (int64_t)row * max_len;
     int ncopy = n < max_len ? n : max_len;
-    for (int i = 0; i < ncopy; i++) out[i] = lut[(unsigned char)rec.seq[i]];
+    uint8_t any_bad = 0;
+    for (int i = 0; i < ncopy; i++) {
+      uint8_t c = lut[(unsigned char)rec.seq[i]];
+      out[i] = c;
+      any_bad |= c;
+    }
     for (int i = ncopy; i < max_len; i++) out[i] = 4;
+    if ((any_bad & 4) && n <= max_len) {
+      const int32_t base = (int32_t)((int64_t)row * max_len);
+      for (int i = 0; i < ncopy; i++) {
+        if (out[i] >= 4) {
+          if (nexc < exc_cap) exc[nexc] = base + i;
+          nexc++;
+        }
+      }
+    }
+    uint32_t* pw = packed + (int64_t)row * words;
+    for (int w = 0; w < full; w++) pw[w] = pack16(out + 16 * w);
+    if (full < words) {
+      uint8_t tail[16] = {0};
+      memcpy(tail, out + 16 * full, max_len - 16 * full);
+      pw[full] = pack16(tail);
+    }
     row++;
   }
+  *n_exc = nexc;
   return row - row0;
 }
 

@@ -11,7 +11,12 @@ reports them in ``long_rows`` — the engine classifies them via the chunked
 long-read path at exactly their position in read order (order matters for
 the first-SAVENUM capture semantics, newkmer_10nx.cpp:608-613).
 
-Copy of ``kmer_id_tpu/io/native_feed.py``.
+Started as a copy of ``kmer_id_tpu/io/native_feed.py``.  Where it differs:
+the fill writes each batch's packed words and exception list beside its code
+plane (io/native), so emitting a batch no longer calls
+``io/batch.py:pack_codes``; the batches are byte-identical to the JAX
+package's feeder's (tests/test_torch_host.py).  It also keeps batch ids and
+a trace (below).
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
-from kmer_id_tpu_torch.io.batch import Batch, RowMeta, pack_codes
+from kmer_id_tpu_torch.io.batch import EXC_CAP, Batch, RowMeta
 from kmer_id_tpu_torch.io.native import NativeFileReader, detect_format, get_lib
 from kmer_id_tpu_torch.core.codec import CODE_LUT, CODE_LUT_U, INVALID
 from kmer_id_tpu_torch.utils import timing
@@ -68,9 +73,12 @@ class NativeBatch:
 class NativePlaneFeeder:
     """Feeds read files through the native decoder into full planes.
 
-    With a ``trace`` (utils/timing.py) each ``NativeFileReader.fill`` is a
-    ``decode.fill`` span and each emitted batch's packing a ``decode.pack``
-    span, both under the id of the batch being filled."""
+    With a ``trace`` (utils/timing.py) each ``NativeFileReader.fill`` (which
+    also packs the words) is a ``decode.fill`` span and each emitted batch's
+    hand-off (blob copies, the batch, new planes) a ``decode.pack`` span,
+    both under the id of the batch being filled; the counter ``pack.plane``
+    counts the batches whose exceptions overflowed ``EXC_CAP``, which ship
+    their u8 plane."""
 
     def __init__(self, batch_size: int, max_len: int, u_is_t: bool,
                  acc_cap_per_row: int = 256, seq_cap_per_row: int = 1024, trace=None):
@@ -88,8 +96,13 @@ class NativePlaneFeeder:
         self.seq_off = np.zeros(self.b + 1, dtype=np.int64)
 
     def _new_plane(self):
-        self.codes = np.full((self.b, self.l), INVALID, dtype=np.uint8)
+        # fresh arrays per batch: the submitter reads the emitted ones.  The
+        # fill writes every byte of the rows it fills; _pack pads the rest.
+        self.codes = np.empty((self.b, self.l), dtype=np.uint8)
         self.lengths = np.zeros(self.b, dtype=np.int32)
+        self.packed = np.empty((self.b, (self.l + 15) // 16), dtype=np.uint32)
+        self.exc = np.full(EXC_CAP, -1, dtype=np.int32)
+        self.n_exc = np.zeros(1, dtype=np.int32)
         self.row = 0
 
     def _emit(self) -> NativeBatch:
@@ -100,6 +113,8 @@ class NativePlaneFeeder:
 
     def _pack(self) -> NativeBatch:
         n = self.row
+        self.codes[n:] = INVALID  # padding rows: pad codes, packed as zeros
+        self.packed[n:] = 0
         metas = BlobMetas(
             self.acc_buf[: self.acc_off[n]].copy(),
             self.acc_off[: n + 1].copy(),
@@ -108,12 +123,14 @@ class NativePlaneFeeder:
             n,
         )
         long_rows = np.nonzero(self.lengths[:n] > self.l)[0].tolist()
-        # long placeholder rows are zeroed out of the device batch before
-        # packing (their in-plane codes are truncated junk)
+        # long placeholder rows are zeroed out of the device batch (their
+        # in-plane codes are truncated junk; the fill gave them no exceptions)
         lens_dev = self.lengths.copy()
         if long_rows:
             lens_dev[long_rows] = 0
-        packed, exc = pack_codes(self.codes, np.minimum(lens_dev, self.l))
+        overflow = int(self.n_exc[0]) > EXC_CAP
+        timing.count(self.trace, "pack.plane", int(overflow))
+        packed, exc = (None, None) if overflow else (self.packed, self.exc)
         batch = Batch(codes=self.codes, lengths=lens_dev, metas=metas, n_rows=n,
                       packed=packed, exc=exc)
         self._new_plane()
@@ -131,6 +148,7 @@ class NativePlaneFeeder:
                 with timing.span(self.trace, "decode.fill", self.emitted):
                     filled, eof = reader.fill(
                         self.row, self.codes, self.lengths,
+                        self.packed, self.exc, self.n_exc,
                         self.acc_buf, self.acc_off, self.seq_buf, self.seq_off,
                     )
                 self.row += filled

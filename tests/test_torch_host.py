@@ -8,7 +8,8 @@ on fixtures made with numpy from a seed.  One parametrised test per area:
   to the other's, and read back by the other package field for field;
 * ``pack_codes``: packed words and exception lists, the overflow case;
 * the batches of ``ReadBatcher`` (with the FASTQ/FASTA parsers) and of
-  ``NativePlaneFeeder``, long reads included;
+  ``NativePlaneFeeder``, long reads included, and the native fill's packed
+  words and exception lists against ``pack_codes`` of its own batches;
 * the rollup CSV bytes of ``m3_report`` and ``readc_report``.
 """
 
@@ -169,15 +170,19 @@ def _python_feed(fx, bmod, files, u_is_t):
     return out + [_item_fields(it) for it in rb.flush()]
 
 
+def _native_fields(nb, u_is_t):
+    b, m = nb.batch, nb.batch.metas
+    return (b.codes, b.lengths, b.packed, b.exc, b.n_rows, nb.long_rows,
+            m.acc_bytes, m.acc_off, m.seq_bytes, m.seq_off, m.n_rows,
+            [m.seq_codes(i, u_is_t) for i in nb.long_rows])
+
+
 def _native_feed(nf, files, u_is_t):
     feeder = nf.NativePlaneFeeder(32, 128, u_is_t)
     out = []
     for path in (files["fastq"], files["fasta"]):
         for nb in list(feeder.feed_path(str(path))) + list(feeder.flush()):
-            b, m = nb.batch, nb.batch.metas
-            out.append((b.codes, b.lengths, b.packed, b.exc, b.n_rows, nb.long_rows,
-                        m.acc_bytes, m.acc_off, m.seq_bytes, m.seq_off, m.n_rows,
-                        [m.seq_codes(i, u_is_t) for i in nb.long_rows]))
+            out.append(_native_fields(nb, u_is_t))
     return out
 
 
@@ -208,6 +213,97 @@ def test_batches_match_jax(read_files, feed, u_is_t):
         assert any(x[5] for x in got)  # long rows
     assert len(got) == len(want) > 2
     _deep_equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def pack_files(tmp_path_factory):
+    """Two FASTQ.gz files of a pair (N in 1 read of 4, U in 1 of 9, reads
+    longer than the plane, some with N), and one whose first 32 reads are 40%
+    N (more than ``EXC_CAP`` in-length exceptions in one batch of 32 x 128)
+    before reads of 2% N."""
+    r = np.random.default_rng(19)
+    d = tmp_path_factory.mktemp("pack")
+
+    def fastq(path, reads):
+        with gzip.open(path, "wt") as f:
+            f.write("".join(f"@{acc}\n{seq}\n+\n{'J' * len(seq)}\n" for acc, seq in reads))
+
+    def dna(n, n_share=0.0, u=False):
+        s = np.frombuffer(b"ACGU" if u else b"ACGT", np.uint8)[r.integers(0, 4, size=n)]
+        s[r.random(n) < n_share] = ord("N")
+        return s.tobytes().decode()
+
+    for name in ("r1", "r2"):
+        fastq(d / f"{name}.fastq.gz",
+              [(f"{name}_{i}", dna(int(r.choice([45, 100, 128, 129, 150, 400])),
+                                   0.03 if i % 4 == 0 else 0.0, u=i % 9 == 0))
+               for i in range(203)])
+    fastq(d / "ns.fastq.gz", [(f"n{i}", dna(120, 0.4 if i < 32 else 0.02)) for i in range(75)])
+    return d
+
+
+# case: (batch, max_len, the feeder's blob caps per row, files fed before one flush)
+PACK_CASES = {
+    "two_files": (32, 128, {}, ("r1", "r2")),
+    "early_flush": (32, 128, {"acc_cap_per_row": 8, "seq_cap_per_row": 48}, ("r1",)),
+    "overflow": (32, 128, {}, ("ns",)),
+    "partial": (64, 128, {}, ("r1",)),
+    "long_rows": (32, 128, {}, ("r2",)),
+    "odd_width": (48, 150, {}, ("r1", "r2")),
+}
+
+
+def _feed_all(nf, d, case, u_is_t, **kw):
+    b, l, caps, names = PACK_CASES[case]
+    feeder = nf.NativePlaneFeeder(b, l, u_is_t, **caps, **kw)
+    out = []
+    for name in names:
+        out += feeder.feed_path(str(d / f"{name}.fastq.gz"))
+    return out + list(feeder.flush())
+
+
+@pytest.mark.parametrize("u_is_t", [False, True])
+@pytest.mark.parametrize("case", list(PACK_CASES))
+def test_native_words_match_pack_codes(pack_files, case, u_is_t):
+    """The words and exception list the native fill writes equal
+    ``pack_codes`` of the batch's own code plane at its device lengths, and
+    every field equals the JAX package's feeder's (which calls
+    ``pack_codes``)."""
+    from kmer_id_tpu_torch.utils import timing
+
+    assert TNF.native_available(), "the port's native decoder did not build (g++)"
+    b, l = PACK_CASES[case][:2]
+    tr = timing.SampleTrace()
+    got = _feed_all(TNF, pack_files, case, u_is_t, trace=tr)
+    want = _feed_all(JNF, pack_files, case, u_is_t)
+    _deep_equal([_native_fields(nb, u_is_t) for nb in got],
+                [_native_fields(nb, u_is_t) for nb in want])
+    overflowed = 0
+    for nb in got:
+        bt = nb.batch
+        assert bt.codes.shape == (b, l)
+        ref = TB.pack_codes(bt.codes, np.minimum(bt.lengths, l))
+        if ref[0] is None:
+            overflowed += 1
+            assert bt.packed is None and bt.exc is None
+            continue
+        _deep_equal([bt.packed, bt.exc], list(ref))
+        assert bt.packed.shape == (b, (l + 15) // 16)
+        assert not bt.packed[bt.n_rows:].any()  # padding rows pack as zeros
+        rows = bt.exc[bt.exc >= 0] // l
+        assert not set(rows.tolist()) & set(nb.long_rows)  # long rows add none
+    assert tr.counters["pack.plane"] == overflowed == (case == "overflow")
+    n_rows = [nb.batch.n_rows for nb in got]
+    accs = [bytes(nb.batch.metas.acc_bytes) for nb in got]
+    if case == "two_files":
+        assert any(b"r1_" in a and b"r2_" in a for a in accs)
+    elif case == "early_flush":
+        assert any(0 < n < b for n in n_rows[:-1])
+    elif case == "partial":
+        assert 0 < n_rows[-1] < b and all(n == b for n in n_rows[:-1])
+    elif case == "long_rows":
+        assert any((nb.batch.codes[nb.long_rows] >= 4).any() for nb in got)
+    assert any(nb.batch.exc is not None and (nb.batch.exc >= 0).any() for nb in got)
 
 
 def _m3_fixture(d, r, crlf):

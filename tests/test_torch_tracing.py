@@ -176,6 +176,7 @@ def test_spans_on_their_threads_and_counters(world, engines, monkeypatch):  # no
 
     c = tr.counters
     assert c["batches"] == sp._feeder.emitted and c["rows"] == res.reads
+    assert c["pack.plane"] == 0  # every batch shipped the fill's words
     assert c["flush.long"] > 0
     assert c["fetches"] == sum(1 for s in tr.spans if s[0] == "collect.fetch")
     summary = tr.summary

@@ -201,6 +201,7 @@ def on_off(name: str, seed: int, rounds: int, device: str) -> dict:
                 finally:
                     undo()
         batches = sum(s["counters"].get("batches", 0) for s in got)
+        pack_plane = sum(s["counters"].get("pack.plane", 0) for s in got)
         n_spans = sum(v["count"] for s in got for v in s["spans"].values())
         res = {
             "rounds": rounds,
@@ -208,6 +209,8 @@ def on_off(name: str, seed: int, rounds: int, device: str) -> dict:
             "decode_alone": _ratios(dec),
             "spans_per_batch": n_spans / batches if batches else None,
             "batches_per_request": batches / len(got) if got else None,
+            "batches": batches,
+            "pack_plane": pack_plane,  # of them, shipped as u8 planes (exceptions overflowed)
             "in_loop": {
                 "decode_fill_ms_per_batch": spans.ms_per_batch(got, "decode.fill"),
                 "decode_pack_ms_per_batch": spans.ms_per_batch(got, "decode.pack"),
@@ -236,7 +239,8 @@ def on_off(name: str, seed: int, rounds: int, device: str) -> dict:
             f"{rq['on_noclock']['over_off_quartiles']}; decode alone off "
             f"{da['off']['median_s']:.4f} s, on/off {da['on']['over_off_median']:.4f} "
             f"{da['on']['over_off_quartiles']}, no clock/off "
-            f"{da['on_noclock']['over_off_median']:.4f}; {res['spans_per_batch']} spans a batch")
+            f"{da['on_noclock']['over_off_median']:.4f}; {res['spans_per_batch']} spans a batch; "
+            f"batches {batches}, pack.plane {pack_plane}")
         return res
     finally:
         shutil.rmtree(work, ignore_errors=True)
