@@ -11,7 +11,9 @@ Started as a copy of ``kmer_id_tpu/io/native/`` (this module and
 ``fastx_native.cpp``).  Where it differs: the fill
 (``fx_next_batch_packed``) also writes the batch's packed 2-bit words and
 exception list, the form ``io/batch.py:pack_codes`` gives, in the pass that
-encodes each row.
+encodes each row; and each open file is read ahead, inflated where it is
+gzip, on a native worker thread into a ring of blocks that the fill takes in
+order (the fill reports the blocks it took and its waits for them).
 """
 
 from __future__ import annotations
@@ -48,7 +50,8 @@ def _build() -> str | None:
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{so}.tmp{os.getpid()}"  # concurrent builders each rename a whole file
     r = subprocess.run(
-        ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", tmp, "-lz"],
+        ["g++", "-O3", "-shared", "-fPIC", "-pthread", "-std=c++17", _SRC, "-o", tmp,
+         "-lz"],
         capture_output=True,
         text=True,
     )
@@ -77,7 +80,7 @@ def get_lib():
         ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
     ]
     _lib = lib
     return _lib
@@ -106,6 +109,7 @@ class NativeFileReader:
             raise RuntimeError("native fastx library unavailable")
         self.lib = lib
         self.u_is_t = 1 if u_is_t else 0
+        self._ring = np.zeros(3, dtype=np.int64)  # the fill's read-ahead counts
         self.handle = lib.fx_open(
             str(path).encode(), FORMAT_CODES[fmt], self.u_is_t
         )
@@ -116,18 +120,21 @@ class NativeFileReader:
     def fill(self, row0: int, codes: np.ndarray, lengths: np.ndarray,
              packed: np.ndarray, exc: np.ndarray, n_exc: np.ndarray,
              acc_buf: np.ndarray, acc_off: np.ndarray,
-             seq_buf: np.ndarray, seq_off: np.ndarray) -> tuple[int, bool]:
+             seq_buf: np.ndarray, seq_off: np.ndarray) -> tuple[int, bool, tuple]:
         """Fill rows [row0, B) of ``codes`` and of their packed words
         (uint32 [B, ceil(L/16)]), appending the rows' in-length non-ACGT
         positions to ``exc`` (int32 [cap]) after the ``n_exc[0]`` there
         (``n_exc[0]`` keeps counting past the cap); returns (rows_filled,
-        eof)."""
+        eof, (blocks, waits, wait_ns)): the read-ahead blocks this fill
+        took, how many of them it waited for, and the nanoseconds it
+        waited."""
         b, l = codes.shape
         if (packed.shape != (b, (l + 15) // 16) or packed.dtype != np.uint32
                 or not packed.flags.c_contiguous or exc.dtype != np.int32
                 or n_exc.dtype != np.int32):
             raise ValueError("packed words or exception list do not fit the code plane")
         eof = ctypes.c_int32(0)
+        ring = self._ring
         n = self.lib.fx_next_batch_packed(
             self.handle, row0, b, l, self.u_is_t,
             codes.ctypes.data_as(ctypes.c_void_p),
@@ -139,11 +146,11 @@ class NativeFileReader:
             acc_off.ctypes.data_as(ctypes.c_void_p),
             seq_buf.ctypes.data_as(ctypes.c_void_p), seq_buf.nbytes,
             seq_off.ctypes.data_as(ctypes.c_void_p),
-            ctypes.byref(eof),
+            ctypes.byref(eof), ring.ctypes.data_as(ctypes.c_void_p),
         )
         if n < 0:
             raise RuntimeError("native reader text buffer overflow")
-        return n, bool(eof.value)
+        return n, bool(eof.value), (int(ring[0]), int(ring[1]), int(ring[2]))
 
     def close(self):
         if self.handle:

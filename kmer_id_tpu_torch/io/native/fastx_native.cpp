@@ -27,14 +27,24 @@
 // is 0).  The words and the list equal io/batch.py:pack_codes of the code
 // plane at each row's device length.
 //
-// Build: g++ -O3 -shared -fPIC fastx_native.cpp -o libfastx.so -lz
+// The stream is read ahead on a worker thread per open file (LineReader), so
+// inflating overlaps the parse; batches do not depend on where its blocks
+// end.
+//
+// Build: g++ -O3 -shared -fPIC -pthread fastx_native.cpp -o libfastx.so -lz
 
 #include <zlib.h>
 
+#include <chrono>
+#include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <memory>
+#include <mutex>
 #include <string>
+#include <system_error>
+#include <thread>
 #include <vector>
 
 namespace {
@@ -51,42 +61,130 @@ enum Format : int {
   FASTA_PLAIN = 3,
 };
 
+// The read-ahead: one worker thread per open file owns its gzFile or FILE*
+// and reads the stream, inflating it where it is gzip, into a ring of kRing
+// preallocated blocks of kBlock bytes while the calling thread parses.  A
+// read that returns <= 0 ends the stream, as a direct read did: a truncated
+// or corrupt .gz stops at the same byte.  Plain files take the same worker.
+constexpr int kBlock = 1 << 20;
+constexpr int kRing = 4;
+
 struct LineReader {
   gzFile gz = nullptr;
   FILE* fp = nullptr;
   std::string buf;
   size_t pos = 0;
   bool eof_ = false;
+  // The ring: slots [head, head + count) mod kRing hold filled blocks, in
+  // stream order; the worker writes the next slot only while count < kRing,
+  // so the slot the fill copies from stays its own until it hands it back.
+  std::unique_ptr<char[]> ring;
+  int len[kRing] = {};
+  int head = 0, count = 0;
+  bool ended = false;  // the worker read the stream's end
+  bool stop = false;   // close: the worker returns at its next check
+  std::mutex mu;
+  std::condition_variable filled, freed;
+  std::thread worker;
+  // Blocks the fill took, how many of them it waited for and the
+  // nanoseconds it waited, since the batch call that reset them.
+  int64_t blocks = 0, waits = 0, wait_ns = 0;
+
+  ~LineReader() { close(); }  // a joinable std::thread must not be destroyed
 
   bool open(const char* path, bool gzip) {
     if (gzip) {
       gz = gzopen(path, "rb");
-      return gz != nullptr;
+      if (!gz) return false;
+    } else {
+      fp = fopen(path, "rb");
+      if (!fp) return false;
     }
-    fp = fopen(path, "rb");
-    return fp != nullptr;
+    ring.reset(new char[(size_t)kRing * kBlock]);
+    try {
+      worker = std::thread(&LineReader::run, this);
+    } catch (const std::system_error&) {
+      close();
+      return false;
+    }
+    return true;
   }
 
+  // Stops and joins the worker, then closes the stream it owned.
   void close() {
+    if (worker.joinable()) {
+      {
+        std::lock_guard<std::mutex> lk(mu);
+        stop = true;
+      }
+      freed.notify_all();
+      filled.notify_all();
+      worker.join();
+    }
     if (gz) gzclose(gz);
     if (fp) fclose(fp);
     gz = nullptr;
     fp = nullptr;
   }
 
+  // The worker: fills the ring's free slots in order until the stream ends
+  // or close stops it.
+  void run() {
+    for (int tail = 0;; tail = (tail + 1) % kRing) {
+      {
+        std::unique_lock<std::mutex> lk(mu);
+        freed.wait(lk, [&] { return stop || count < kRing; });
+        if (stop) return;
+      }
+      char* dst = ring.get() + (size_t)tail * kBlock;
+      int n = gz ? gzread(gz, dst, kBlock) : (int)fread(dst, 1, kBlock, fp);
+      {
+        std::lock_guard<std::mutex> lk(mu);
+        if (n > 0) {
+          len[tail] = n;
+          count++;
+        } else {
+          ended = true;
+        }
+      }
+      filled.notify_one();
+      if (n <= 0) return;
+    }
+  }
+
+  // Appends the ring's next block to buf (after dropping the lines already
+  // taken), waiting for the worker where the ring is empty; false at the
+  // stream's end.
   bool fill() {
-    char tmp[1 << 16];
-    int n;
-    if (gz) {
-      n = gzread(gz, tmp, sizeof(tmp));
-    } else {
-      n = (int)fread(tmp, 1, sizeof(tmp), fp);
+    int slot;
+    {
+      std::unique_lock<std::mutex> lk(mu);
+      if (count == 0 && !ended) {
+        auto t0 = std::chrono::steady_clock::now();
+        filled.wait(lk, [&] { return count > 0 || ended; });
+        if (count > 0) {
+          waits++;
+          wait_ns += std::chrono::duration_cast<std::chrono::nanoseconds>(
+                         std::chrono::steady_clock::now() - t0)
+                         .count();
+        }
+      }
+      if (count == 0) {
+        eof_ = true;
+        return false;
+      }
+      slot = head;
     }
-    if (n <= 0) {
-      eof_ = true;
-      return false;
+    buf.erase(0, pos);
+    pos = 0;
+    buf.append(ring.get() + (size_t)slot * kBlock, len[slot]);
+    {
+      std::lock_guard<std::mutex> lk(mu);
+      head = (head + 1) % kRing;
+      count--;
     }
-    buf.append(tmp, n);
+    freed.notify_one();
+    blocks++;
     return true;
   }
 
@@ -97,10 +195,6 @@ struct LineReader {
       if (nl != std::string::npos) {
         line->assign(buf, pos, nl - pos);
         pos = nl + 1;
-        if (pos > (1 << 20)) {
-          buf.erase(0, pos);
-          pos = 0;
-        }
         if (!line->empty() && line->back() == '\r') line->pop_back();
         return true;
       }
@@ -309,10 +403,7 @@ void* fx_open(const char* path, int format, int u_is_t) {
 }
 
 void fx_close(void* h) {
-  if (!h) return;
-  Reader* r = (Reader*)h;
-  r->lr.close();
-  delete r;
+  delete (Reader*)h;  // ~LineReader stops the worker and closes the stream
 }
 
 // Fill rows [row0, B) of a [B, L] code plane and of its [B, ceil(L/16)]
@@ -321,13 +412,16 @@ void fx_close(void* h) {
 // Returns number of rows filled this call; *eof set when the file is done.
 // Text blobs: acc/seq bytes appended with (B+1)-length offset arrays
 // (caller guarantees capacity; on overflow returns -1).
+// ring[0..2]: the read-ahead blocks this call took, how many of them it
+// waited for, and the nanoseconds it waited.
 int fx_next_batch_packed(void* h, int row0, int batch, int max_len, int u_is_t,
                          uint8_t* codes, int32_t* lengths, uint32_t* packed,
                          int32_t* exc, int32_t exc_cap, int32_t* n_exc,
                          char* acc_buf, int64_t acc_cap, int64_t* acc_off,
                          char* seq_buf, int64_t seq_cap, int64_t* seq_off,
-                         int32_t* eof) {
+                         int32_t* eof, int64_t* ring) {
   Reader* r = (Reader*)h;
+  r->lr.blocks = r->lr.waits = r->lr.wait_ns = 0;
   const uint8_t* lut = g_lut[u_is_t ? 1 : 0];
   const int words = (max_len + 15) / 16;
   const int full = max_len / 16;  // words with all 16 codes inside the row
@@ -391,6 +485,9 @@ int fx_next_batch_packed(void* h, int row0, int batch, int max_len, int u_is_t,
     row++;
   }
   *n_exc = nexc;
+  ring[0] = r->lr.blocks;
+  ring[1] = r->lr.waits;
+  ring[2] = r->lr.wait_ns;
   return row - row0;
 }
 

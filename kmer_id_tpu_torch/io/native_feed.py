@@ -15,8 +15,9 @@ Started as a copy of ``kmer_id_tpu/io/native_feed.py``.  Where it differs:
 the fill writes each batch's packed words and exception list beside its code
 plane (io/native), so emitting a batch no longer calls
 ``io/batch.py:pack_codes``; the batches are byte-identical to the JAX
-package's feeder's (tests/test_torch_host.py).  It also keeps batch ids and
-a trace (below).
+package's feeder's (tests/test_torch_host.py).  The native reader inflates
+each file on a worker thread ahead of the fill (io/native).  It also keeps
+batch ids and a trace (below).
 """
 
 from __future__ import annotations
@@ -78,7 +79,9 @@ class NativePlaneFeeder:
     hand-off (blob copies, the batch, new planes) a ``decode.pack`` span,
     both under the id of the batch being filled; the counter ``pack.plane``
     counts the batches whose exceptions overflowed ``EXC_CAP``, which ship
-    their u8 plane."""
+    their u8 plane, and ``inflate.blocks``, ``inflate.waits`` and
+    ``inflate.wait_us`` count the read-ahead blocks the fills took, how many
+    of them they waited for, and the microseconds they waited."""
 
     def __init__(self, batch_size: int, max_len: int, u_is_t: bool,
                  acc_cap_per_row: int = 256, seq_cap_per_row: int = 1024, trace=None):
@@ -146,11 +149,14 @@ class NativePlaneFeeder:
         try:
             while True:
                 with timing.span(self.trace, "decode.fill", self.emitted):
-                    filled, eof = reader.fill(
+                    filled, eof, (blocks, waits, wait_ns) = reader.fill(
                         self.row, self.codes, self.lengths,
                         self.packed, self.exc, self.n_exc,
                         self.acc_buf, self.acc_off, self.seq_buf, self.seq_off,
                     )
+                timing.count(self.trace, "inflate.blocks", blocks)
+                timing.count(self.trace, "inflate.waits", waits)
+                timing.count(self.trace, "inflate.wait_us", (wait_ns + 500) // 1000)
                 self.row += filled
                 if self.row >= self.b:
                     yield self._emit()

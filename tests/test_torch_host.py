@@ -199,13 +199,68 @@ def _deep_equal(a, b):
         assert a == b
 
 
+@pytest.fixture(scope="module")
+def large_files(tmp_path_factory):
+    """Read files of several MiB each, so that many records and lines straddle
+    the native reader's read-ahead blocks (1 MiB): a FASTQ.gz and a plain
+    FASTQ (Ns, U, CRLF lines, low-quality tails, reads longer than the plane,
+    headers with fields), and a multi-line FASTA.gz (records of 20 bp to 40
+    kb, lines of 50-80, some empty lines)."""
+    r = np.random.default_rng(23)
+    d = tmp_path_factory.mktemp("large")
+    bases = np.frombuffer(b"ACGTNU", np.uint8)
+
+    def dna(n):
+        s = bases[r.choice(6, size=n, p=[0.24, 0.24, 0.24, 0.24, 0.02, 0.02])]
+        return s.tobytes().decode()
+
+    def fastq(n_reads):
+        out = []
+        for i in range(n_reads):
+            n = int(r.choice([60, 100, 150, 150, 150, 250, 400]))
+            qual = "J" * n if i % 10 else "J" * (n - 25) + "#" * 25
+            eol = "\r\n" if i % 13 == 0 else "\n"
+            out.append(f"@read{i} {i % 7}:N:0{eol}{dna(n)}{eol}+{eol}{qual}{eol}")
+        return "".join(out)
+
+    with gzip.open(d / "reads.fastq.gz", "wt", compresslevel=1) as f:
+        f.write(fastq(14_000))
+    (d / "reads.fastq").write_text(fastq(12_000))
+    with gzip.open(d / "contigs.fasta.gz", "wt", compresslevel=1) as f:
+        for i in range(400):
+            seq = dna(int(r.integers(20, 40_000)))
+            w = int(r.integers(50, 81))
+            lines = [seq[j:j + w] for j in range(0, len(seq), w)]
+            f.write(f">contig{i} len={len(seq)}\n" + "\n".join(lines)
+                    + ("\n\n" if i % 9 == 0 else "\n"))
+    return d
+
+
+def _large_feed(nf, d, u_is_t):
+    feeder = nf.NativePlaneFeeder(256, 160, u_is_t)
+    out = []
+    for name in ("reads.fastq.gz", "reads.fastq", "contigs.fasta.gz"):
+        for nb in list(feeder.feed_path(str(d / name))) + list(feeder.flush()):
+            out.append(_native_fields(nb, u_is_t))
+    return out
+
+
 @pytest.mark.parametrize("u_is_t", [False, True])
-@pytest.mark.parametrize("feed", ["python", "native"])
-def test_batches_match_jax(read_files, feed, u_is_t):
+@pytest.mark.parametrize("feed", ["python", "native", "native_large"])
+def test_batches_match_jax(read_files, feed, u_is_t, request):
     if feed == "python":
         got = _python_feed(TFX, TB, read_files, u_is_t)
         want = _python_feed(JFX, JB, read_files, u_is_t)
         assert {x[0] for x in got} == {"batch", "long"}
+    elif feed == "native_large":
+        d = request.getfixturevalue("large_files")
+        for name in ("reads.fastq.gz", "reads.fastq", "contigs.fasta.gz"):
+            opener = gzip.open if name.endswith(".gz") else open
+            with opener(d / name, "rb") as f:
+                assert len(f.read()) > (4 << 20), name  # several read-ahead blocks
+        got = _large_feed(TNF, d, u_is_t)
+        want = _large_feed(JNF, d, u_is_t)
+        assert any(x[5] for x in got)  # long rows
     else:
         assert TNF.native_available(), "the port's native decoder did not build (g++)"
         got = _native_feed(TNF, read_files, u_is_t)
@@ -213,6 +268,87 @@ def test_batches_match_jax(read_files, feed, u_is_t):
         assert any(x[5] for x in got)  # long rows
     assert len(got) == len(want) > 2
     _deep_equal(got, want)
+
+
+def _in_thread(fn, timeout_s=120):
+    """``fn()`` on a daemon thread, joined with a timeout: its result, or a
+    failure where it did not return."""
+    import threading
+
+    out = []
+    t = threading.Thread(target=lambda: out.append(fn()), daemon=True)
+    t.start()
+    t.join(timeout_s)
+    assert not t.is_alive(), f"did not return within {timeout_s} s"
+    assert out, "raised"
+    return out[0]
+
+
+@pytest.mark.parametrize("cut", [0.37, 0.81])
+def test_truncated_gz_matches_jax(large_files, tmp_path, cut):
+    """A .fastq.gz cut short ends, without hanging, at the same record as the
+    JAX package's native feeder, which reads the stream on the calling
+    thread 64 KiB at a time."""
+    data = (large_files / "reads.fastq.gz").read_bytes()
+    path = tmp_path / "cut.fastq.gz"
+    path.write_bytes(data[: int(len(data) * cut)])
+
+    def feed(nf):
+        feeder = nf.NativePlaneFeeder(256, 160, False)
+        return [_native_fields(nb, False)
+                for nb in list(feeder.feed_path(str(path))) + list(feeder.flush())]
+
+    got = _in_thread(lambda: feed(TNF))
+    want = feed(JNF)
+    assert len(got) > 4
+    _deep_equal(got, want)
+
+
+def _threads() -> int:
+    return len(os.listdir("/proc/self/task"))
+
+
+def test_readers_closed_mid_file_stop_their_workers(large_files):
+    """Fifty readers over a multi-MiB .fastq.gz, each filled once and closed
+    mid-file (half through the feeder's generator, abandoned after its first
+    batch; some after the worker has filled its ring and blocked): each close
+    returns within seconds and the process's threads come back to their
+    count."""
+    import time
+
+    from kmer_id_tpu_torch.io.native import NativeFileReader
+
+    path = str(large_files / "reads.fastq.gz")
+    start = _threads()
+    b, l = 256, 160
+    for i in range(50):
+        if i % 2:
+            gen = TNF.NativePlaneFeeder(b, l, False).feed_path(path)
+            before = _threads()
+            assert next(gen).batch.n_rows == b
+            assert _threads() == before + 1  # the reader's worker
+            close = gen.close  # feed_path's finally closes the reader
+        else:
+            reader = NativeFileReader(path, "fastq_gz", False)
+            codes = np.empty((b, l), np.uint8)
+            n, eof, (blocks, waits, wait_ns) = reader.fill(
+                0, codes, np.zeros(b, np.int32), np.empty((b, 10), np.uint32),
+                np.full(64, -1, np.int32), np.zeros(1, np.int32),
+                np.zeros(b * 256, np.uint8), np.zeros(b + 1, np.int64),
+                np.zeros(b * 1024, np.uint8), np.zeros(b + 1, np.int64))
+            assert n == b and not eof and blocks == 1 and waits in (0, 1) and wait_ns >= 0
+            if i % 10 == 0:
+                time.sleep(0.3)  # the worker fills the ring and waits for a free block
+            close = reader.close
+        t = time.perf_counter()
+        close()
+        assert time.perf_counter() - t < 5
+    # a closed reader's worker is joined; a Python thread that an earlier
+    # test joined may still be leaving the list, so give the count a moment
+    deadline = time.perf_counter() + 5
+    while _threads() > start and time.perf_counter() < deadline:
+        time.sleep(0.05)
+    assert _threads() <= start
 
 
 @pytest.fixture(scope="module")

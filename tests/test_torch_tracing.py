@@ -10,7 +10,8 @@ spans and counters of the sample loop, on the drivers tests' small world.
   ``kmerid::`` ranges are among the profile's events; ``--profile`` writes
   them into its Chrome trace.
 * The output files are byte-identical with tracing on and off; ``recent()``
-  keeps at most its bound; the benchmark's readers of the spans.
+  keeps at most its bound; the benchmark's readers of the spans and
+  counters, the native reader's read-ahead counters among them.
 """
 
 import io
@@ -32,7 +33,8 @@ COLLECTOR = {"collect", "collect.fetch", "collect.replay", "collect.lane", "coll
 METRICS = ["decode_fill_ms_per_batch", "decode_pack_ms_per_batch",
            "decode_offcpu_ms_per_batch", "feed_wait_ms_per_batch", "submit_wait_ms_per_batch",
            "submit_sync_ms_per_batch", "collect_fetch_ms_per_batch",
-           "collect_lane_ms_per_batch", "fetches_per_batch", "sample_overhead_ms"]
+           "collect_lane_ms_per_batch", "fetches_per_batch", "sample_overhead_ms",
+           "decode_inflate_wait_ms_per_batch"]
 
 
 @pytest.fixture(autouse=True)
@@ -193,6 +195,25 @@ def test_spans_on_their_threads_and_counters(world, engines, monkeypatch):  # no
             assert b in packed, (name, b)
 
 
+def test_inflate_counters(world, engines):  # noqa: F811
+    """The native reader's read-ahead counters: none in an untraced sample;
+    in a traced one the blocks the fills took (each small file is one),
+    how many of them they waited for and the microseconds waited, read by
+    ``decode_inflate_wait_ms_per_batch``."""
+    from benchmark import spec
+
+    read = spec.reader("decode_inflate_wait_ms_per_batch")
+    sp, res = _sample(world, engines())
+    assert sp._feeder.trace is None and res.stage_s == {} and timing.recent() == []
+    assert read(None) is None
+    timing.set_tracing(True)
+    sp, res = _sample(world, engines())
+    c = res.trace.counters
+    assert c["inflate.blocks"] >= 2 and c["inflate.blocks"] >= c["inflate.waits"] >= 0
+    assert c["inflate.wait_us"] >= 0
+    assert read(None) == pytest.approx(c["inflate.wait_us"] / 1000 / c["batches"], rel=1e-12)
+
+
 def test_kernel_build_span(monkeypatch):
     from kmer_id_tpu_torch.kernels import build
 
@@ -326,6 +347,8 @@ def _expected(metric: str, got: list):
         "collect_lane_ms_per_batch": wall("collect.lane") / batches,
         "fetches_per_batch": sum(s["counters"]["fetches"] for s in got) / batches,
         "sample_overhead_ms": wall("sample.start", "sample.finish", "sample.write") / len(got),
+        "decode_inflate_wait_ms_per_batch":
+            sum(s["counters"]["inflate.wait_us"] for s in got) / 1000 / batches,
     }[metric]
 
 

@@ -12,8 +12,10 @@ and writes its files under ``build/decode_ab/``.  Then, ``--rounds`` times,
 runs each checkout in a fresh process in the order before, after, after,
 before.  Each process imports that checkout's ``NativePlaneFeeder``, drains
 it over the request once to warm up, then ``--drains`` times with a trace
-(no profiler), and reports per batch the median wall of a drain and of its
-``decode.fill`` and ``decode.pack`` spans.  Prints one JSON line per cell:
+(no profiler), and reports per batch the median wall of a drain, of its
+``decode.fill`` and ``decode.pack`` spans, and the fill's wait for the
+reader's read-ahead (the ``inflate.wait_us`` counter; null in a checkout
+whose reader has none).  Prints one JSON line per cell:
 each arm's medians over its processes, and the after-minus-before
 differences of the two processes of each turn (median and quartiles, ms a
 batch), the fill's being what packing inside the fill costs there.
@@ -41,7 +43,7 @@ from kmer_id_tpu_torch.io.native_feed import NativePlaneFeeder
 from kmer_id_tpu_torch.utils import timing
 b, l, u, fmt, drains = int(sys.argv[2]), int(sys.argv[3]), sys.argv[4] == "1", sys.argv[5], int(sys.argv[6])
 paths = sys.argv[7:]
-out = {"wall": [], "decode.fill": [], "decode.pack": []}
+out = {"wall": [], "decode.fill": [], "decode.pack": [], "inflate.wait": []}
 for k in range(drains + 1):
     tr = timing.SampleTrace()
     feeder = NativePlaneFeeder(b, l, u, trace=tr)
@@ -59,7 +61,10 @@ for k in range(drains + 1):
     out["wall"].append(wall * 1e3 / n)
     for name in ("decode.fill", "decode.pack"):
         out[name].append(spans[name]["wall_ns"] / 1e6 / n)
-print(json.dumps({k: statistics.median(v) for k, v in out.items()} | {"batches": n}))
+    wait_us = tr.counters.get("inflate.wait_us")
+    out["inflate.wait"].append(None if wait_us is None else wait_us / 1e3 / n)
+print(json.dumps({k: None if None in v else statistics.median(v) for k, v in out.items()}
+                 | {"batches": n}))
 """
 
 
@@ -93,6 +98,12 @@ def arm(checkout: str, preset: dict, fmt: str, paths: list, drains: int) -> dict
     return json.loads(p.stdout.strip().splitlines()[-1])
 
 
+def median(values):
+    """The median, or None where any value is None (an arm without it)."""
+    v = list(values)
+    return None if None in v else statistics.median(v)
+
+
 def quartiles(v: list) -> list:
     return statistics.quantiles(v, n=4) if len(v) > 1 else [v[0]] * 3
 
@@ -114,7 +125,7 @@ def main() -> int:
         for i, name in enumerate(args.cells):
             preset, fmt, paths = make_request(name, args.seed + i, args.probes, args.toy)
             runs = {"before": [], "after": []}
-            diffs: dict = {"wall": [], "decode.fill": [], "decode.pack": []}
+            diffs: dict = {"wall": [], "decode.fill": [], "decode.pack": [], "inflate.wait": []}
             for _ in range(args.rounds):
                 turn = {}
                 for which in ("before", "after", "after", "before"):
@@ -123,13 +134,14 @@ def main() -> int:
                     turn.setdefault(which, []).append(got)
                 for k in diffs:
                     for b, a in zip(turn["before"], turn["after"]):
-                        diffs[k].append(a[k] - b[k])
+                        if a[k] is not None and b[k] is not None:
+                            diffs[k].append(a[k] - b[k])
             res = {"cell": name, "batches": runs["after"][0]["batches"],
-                   "ms_per_batch": {which: {k: statistics.median(r[k] for r in rs)
-                                            for k in diffs} for which, rs in runs.items()},
+                   "ms_per_batch": {which: {k: median(r[k] for r in rs) for k in diffs}
+                                    for which, rs in runs.items()},
                    "after_minus_before": {k: {"median": statistics.median(v),
                                               "quartiles": quartiles(v)}
-                                          for k, v in diffs.items()}}
+                                          for k, v in diffs.items() if v}}
             print(json.dumps(res), flush=True)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)

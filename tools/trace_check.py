@@ -202,6 +202,8 @@ def on_off(name: str, seed: int, rounds: int, device: str) -> dict:
                     undo()
         batches = sum(s["counters"].get("batches", 0) for s in got)
         pack_plane = sum(s["counters"].get("pack.plane", 0) for s in got)
+        inflate = {c: sum(s["counters"].get(f"inflate.{c}", 0) for s in got)
+                   for c in ("blocks", "waits", "wait_us")}
         n_spans = sum(v["count"] for s in got for v in s["spans"].values())
         res = {
             "rounds": rounds,
@@ -211,11 +213,15 @@ def on_off(name: str, seed: int, rounds: int, device: str) -> dict:
             "batches_per_request": batches / len(got) if got else None,
             "batches": batches,
             "pack_plane": pack_plane,  # of them, shipped as u8 planes (exceptions overflowed)
+            # the fills' read-ahead blocks, the waits for them and the us waited
+            "inflate": inflate,
             "in_loop": {
                 "decode_fill_ms_per_batch": spans.ms_per_batch(got, "decode.fill"),
                 "decode_pack_ms_per_batch": spans.ms_per_batch(got, "decode.pack"),
                 "decode_offcpu_ms_per_batch": spans.ms_per_batch(
                     got, "decode.fill", "decode.pack", offcpu=True),
+                "decode_inflate_wait_ms_per_batch":
+                    inflate["wait_us"] / 1e3 / batches if batches else None,
                 "feed_wait_ms_per_batch": spans.ms_per_batch(got, "feed.wait"),
                 "submit_ms_per_batch": spans.ms_per_batch(got, "submit"),
                 "submit_wait_ms_per_batch": spans.ms_per_batch(got, "submit.wait"),
@@ -240,7 +246,9 @@ def on_off(name: str, seed: int, rounds: int, device: str) -> dict:
             f"{da['off']['median_s']:.4f} s, on/off {da['on']['over_off_median']:.4f} "
             f"{da['on']['over_off_quartiles']}, no clock/off "
             f"{da['on_noclock']['over_off_median']:.4f}; {res['spans_per_batch']} spans a batch; "
-            f"batches {batches}, pack.plane {pack_plane}")
+            f"batches {batches}, pack.plane {pack_plane}, inflate.blocks "
+            f"{inflate['blocks']}, inflate.waits {inflate['waits']}, inflate.wait_us "
+            f"{inflate['wait_us']}")
         return res
     finally:
         shutil.rmtree(work, ignore_errors=True)
