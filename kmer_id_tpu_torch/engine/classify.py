@@ -31,7 +31,7 @@ import torch
 from kmer_id_tpu_torch.core.codec import INVALID, KSIZE
 from kmer_id_tpu_torch.core.taxonomy import Taxonomy
 from kmer_id_tpu_torch.db.probes import PackedDB
-from kmer_id_tpu_torch.engine.host import PendingBatch, fold_host
+from kmer_id_tpu_torch.engine.host import Engine, PendingBatch, fold_host
 from kmer_id_tpu_torch.io.batch import Batch, LongRead
 from kmer_id_tpu_torch.ops.fold import compact_hits
 from kmer_id_tpu_torch.ops.gate import ReadPlanes, extract
@@ -122,11 +122,18 @@ def device_tables(db: PackedDB, use_cuckoo: bool, device) -> dict:
     return out
 
 
-class Classifier:
-    """The legacy engine on one torch device, with the JAX engine's API:
-    ``new_seen`` / ``submit_batch`` / ``collect`` / ``process_batch`` /
-    ``detail_batch`` / ``process_long`` / ``ucount``.  ``use_cuckoo=False``
-    looks keys up by bisection of the sorted array instead."""
+def held_rows(summary, reads: ReadPlanes) -> list:
+    """The device tensors a legacy engine's collect reads: the summary and
+    the rows its overflow replay takes again."""
+    return [summary] + [t for t in (reads.lengths, reads.packed, reads.exc, reads.codes)
+                        if t is not None]
+
+
+class Classifier(Engine):
+    """The legacy engine on one torch device (engine/host.py's
+    :class:`Engine`, with ``collect`` and ``detail_batch``).
+    ``use_cuckoo=False`` looks keys up by bisection of the sorted array
+    instead."""
 
     def __init__(
         self,
@@ -176,7 +183,7 @@ class Classifier:
     def submit_batch(self, seen, batch: Batch):
         reads = ReadPlanes.from_batch(batch, self.device, self.max_len)
         seen, summary = self._run(seen, reads, "compact", self.max_steps)
-        return seen, PendingBatch(summary, reads, None, batch.n_rows)
+        return seen, PendingBatch(summary, reads, held_rows(summary, reads), batch.n_rows)
 
     def collect(self, seen, pending: PendingBatch):
         """The pending batch's finals on the host; returns (seen, finals)."""
@@ -189,10 +196,6 @@ class Classifier:
         finals = resolve_finals(self.taxonomy, timing.fetch(pending.packed), get_targets)
         return seen, finals[: pending.n_rows]
 
-    def process_batch(self, seen, batch: Batch):
-        seen, pending = self.submit_batch(seen, batch)
-        return self.collect(seen, pending)
-
     def detail_batch(self, seen, batch: Batch):
         """Per-window hit detail for the verify replay: (seen, detail int32
         [B, P], canonical keys uint64 [B, P]), as numpy."""
@@ -202,7 +205,7 @@ class Classifier:
                 | lo.cpu().numpy().view(np.uint32))
         return seen, detail.cpu().numpy(), keys
 
-    def process_long(self, seen, item: LongRead):
+    def _long_one(self, seen, item: LongRead):
         """One read longer than ``max_len``: chunk rows with a KSIZE-1 halo
         in groups of ``batch_size`` rows (a [batch_size, max_len] plane of
         invalid bases, lengths 0 past the group), each row's windows up to

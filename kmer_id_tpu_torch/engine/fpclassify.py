@@ -57,8 +57,8 @@ from kmer_id_tpu_torch.core.codec import INVALID, KSIZE
 from kmer_id_tpu_torch.core.taxonomy import Taxonomy
 from kmer_id_tpu_torch.db.fpdb import FpDB, build_fpdb, build_tinfo
 from kmer_id_tpu_torch.db.probes import PackedDB
-from kmer_id_tpu_torch.io.batch import Batch, LongRead, pack_codes
-from kmer_id_tpu_torch.engine.host import PendingBatch, fold_host, fold_host_many
+from kmer_id_tpu_torch.io.batch import Batch, pack_codes
+from kmer_id_tpu_torch.engine.host import Engine, PendingBatch, fold_host, fold_host_many
 from kmer_id_tpu_torch.ops.fold import fold_targets_chain
 from kmer_id_tpu_torch.ops.gate import BLOOM_K, ReadPlanes, extract, window_gate
 from kmer_id_tpu_torch.ops.probe import (
@@ -140,16 +140,9 @@ def _summary_plane(cv):
     return torch.cat([deepest[:, None], nh[:, None], flags[:, None], slots], dim=1)
 
 
-def fp_summary(db, reads: ReadPlanes, max_hits: int):
-    """Candidate compaction + verify + the per-read summary plane.  Kept for
-    parity with the JAX package's ``mode="summary"`` dispatch; no path of the
-    port calls it (the lane uses :func:`fp_summary_seen`)."""
-    return _summary_plane(_compact_verify(db, reads, max_hits))
-
-
 def fp_summary_seen(db, reads: ReadPlanes, seen, max_hits: int):
-    """:func:`fp_summary` that also marks the verified slots in ``seen`` (in
-    place)."""
+    """Candidate compaction + verify + the per-read summary plane, the
+    verified slots marked in ``seen`` (in place)."""
     return _summary_plane(_compact_verify(db, reads, max_hits, seen))
 
 
@@ -225,11 +218,9 @@ def _slot_nodes(rec, tinfo):
     return tinfo[:, 0].index_select(0, rec[:, 2] & 0xFFFFFF)
 
 
-class FpClassifier:
-    """Fingerprint engine on one torch device, with the JAX engine's outer
-    API: ``new_seen`` / ``submit_batch`` / ``collect`` / ``collect_many`` /
-    ``process_batch`` / ``process_long`` / ``process_long_many`` /
-    ``ucount``.
+class FpClassifier(Engine):
+    """Fingerprint engine on one torch device (engine/host.py's
+    :class:`Engine`, with ``collect`` and a one-fetch ``collect_many``).
 
     ``max_hits`` is the per-read verified-hit budget.  On a CUDA device it
     must lie in [1, ``KERNEL_MAX_HITS``] = [1, 32]: the probe + verify
@@ -276,7 +267,7 @@ class FpClassifier:
 
     def submit_batch(self, seen, batch: Batch):
         finals = fp_finals(self._db, self._reads(batch), seen, self.max_hits)
-        return seen, PendingBatch(finals, batch, None, batch.n_rows)
+        return seen, PendingBatch(finals, batch, [finals], batch.n_rows)
 
     def _finish_collect(self, seen, arr: np.ndarray, pending: PendingBatch):
         overflow = (arr & (1 << 30)) != 0
@@ -314,15 +305,6 @@ class FpClassifier:
             out.append(finals)
             off += n
         return seen, out
-
-    def process_batch(self, seen, batch: Batch):
-        seen, pending = self.submit_batch(seen, batch)
-        return self.collect(seen, pending)
-
-    def process_long(self, seen, item: LongRead):
-        """One read longer than ``max_len`` (see :meth:`process_long_many`)."""
-        seen, finals = self.process_long_many(seen, [item])
-        return seen, finals[0]
 
     def chunk_rows(self, items: list):
         """KSIZE-1-halo chunk rows of every read, so no window is lost or

@@ -1,8 +1,7 @@
-"""Host-side pieces of the engine (numpy only).
-
-Copies of ``PendingBatch``, ``fold_host_many`` and ``fold_host`` from
-``kmer_id_tpu/engine/classify.py``, which cannot be imported here because
-that module imports jax.
+"""Host-side pieces of the engine (numpy only): :class:`Engine`, the
+interface of every engine, and copies of ``PendingBatch``, ``fold_host_many``
+and ``fold_host`` from ``kmer_id_tpu/engine/classify.py``, which cannot be
+imported here because that module imports jax.
 """
 
 from __future__ import annotations
@@ -18,8 +17,45 @@ class PendingBatch:
 
     packed: object  # device int32: [B] finals, or the legacy engine's summary
     codes: object  # the rows (Batch, or legacy ReadPlanes) for the overflow replay
-    lengths: object
+    held: list  # the device tensors the collect reads, as submit filled them
     n_rows: int
+
+
+class Engine:
+    """The calls the sample loop makes of every engine: ``new_seen()``,
+    ``submit_batch(seen, batch)`` -> (seen, pending), ``collect_many(seen,
+    pendings)`` -> (seen, [finals, ...]), ``process_long_many(seen, items)``
+    -> (seen, [final, ...]) and ``ucount(seen)``; the legacy engine's
+    ``detail_batch`` serves the ``minalign > 0`` replay.  An engine defines
+    ``collect(seen, pending)`` and its own ``process_long_many`` or a
+    one-read lane ``_long_one(seen, item)`` -> (seen, final); the rest is
+    written here once."""
+
+    def collect_many(self, seen, pendings: list):
+        """:meth:`collect` of each pending batch, in order."""
+        out = []
+        for p in pendings:
+            seen, finals = self.collect(seen, p)
+            out.append(finals)
+        return seen, out
+
+    def process_long_many(self, seen, items: list):
+        """``_long_one`` of each read, in order."""
+        finals = []
+        for item in items:
+            seen, f = self._long_one(seen, item)
+            finals.append(f)
+        return seen, finals
+
+    def process_batch(self, seen, batch):
+        """One batch submitted and collected: (seen, finals)."""
+        seen, pending = self.submit_batch(seen, batch)
+        return self.collect(seen, pending)
+
+    def process_long(self, seen, item):
+        """One read longer than ``max_len``: (seen, final)."""
+        seen, finals = self.process_long_many(seen, [item])
+        return seen, finals[0]
 
 
 def fold_host_many(tax, seqs: list) -> np.ndarray:

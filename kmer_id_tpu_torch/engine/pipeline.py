@@ -39,11 +39,11 @@ from kmer_id_tpu_torch.db.probes import (
     save_packed,
 )
 from kmer_id_tpu_torch.io.batch import Batch, LongRead, ReadBatcher
+from kmer_id_tpu_torch.io.native_feed import NativeBatch
 from kmer_id_tpu_torch.utils.logging import log
 from kmer_id_tpu_torch.utils import timing
 from kmer_id_tpu_torch.engine.classify import Classifier
 from kmer_id_tpu_torch.engine.fpclassify import FpClassifier
-from kmer_id_tpu_torch.ops.gate import ReadPlanes
 
 
 @dataclass
@@ -167,18 +167,22 @@ class SampleProcessor:
     accounted at their place in read order.  ``target_reads_out`` receives
     every read whose final is ``cfg.save_target`` (vf6 ``-target``).
 
+    Both feeds give the loop ``NativeBatch`` items, a Python-feed long read
+    as one long row without a device batch; the engine is an engine/host.py
+    :class:`Engine`.
+
     The JAX driver's overlap of host and device, on two worker threads:
 
     * the **submitter** (one worker, FIFO, at most 6 steps queued) runs
-      :meth:`_consume` / :meth:`_consume_native`: the engine's
-      ``submit_batch``, which marks ``seen``, while the calling thread
-      decodes ahead;
+      :meth:`_consume_native`: the engine's ``submit_batch``, which marks
+      ``seen``, while the calling thread decodes ahead;
     * the **collector** (one worker, at most ``pipeline_depth`` jobs in
       flight) collects, replays candidate overflows, runs the long-read
       lane and accounts, in read order, marking only ``seen_ovr``.  The
-      finals of ``collect_group`` batches come back in one transfer through
-      the engine's ``collect_many`` (4 when it has one, else 1); a long read
-      or a native batch with long rows flushes the group first.
+      finals of ``collect_group`` = 4 items without long rows come back
+      through the engine's ``collect_many`` (:meth:`_group_job`); an item
+      with long rows flushes the group and is collected alone, its long
+      rows through ``process_long_many`` (:meth:`_drain_job`).
 
     On a card each worker launches on a stream of its own, and a batch's
     submit is handed to the collector with an event its stream waits on.
@@ -244,7 +248,7 @@ class SampleProcessor:
             )
             overlap = cfg.minalign == 0 and world_size() == 1
             self.pipeline_depth = 4 if overlap else 0  # collector jobs in flight
-            self.collect_group = 4 if hasattr(clf, "collect_many") and overlap else 1
+            self.collect_group = 4 if overlap else 1
             self._group: list = []  # [(pending, batch, event, batch id)] awaiting a group job
             self._inflight: deque = deque()  # the collector's futures, FIFO
             self._sub_q: deque = deque()  # the submitter's futures, FIFO
@@ -279,7 +283,7 @@ class SampleProcessor:
     def feed(self, records: Iterable) -> None:
         for acc, seq, qual in records:
             for item in self.batcher.add(acc, seq, qual):
-                self._enqueue(self._consume, item)
+                self._feed_item(item)
 
     def feed_file(self, path, fmt: str | None = None) -> None:
         """Stream one read file (extension-dispatched, vf6:1133-1152; pass
@@ -308,7 +312,7 @@ class SampleProcessor:
                     for nb in self._feeder.flush():
                         self._enqueue(self._consume_native, nb)
                 for item in self.batcher.flush():
-                    self._enqueue(self._consume, item)
+                    self._feed_item(item)
                 self._drain_submits()
                 if self._submitter is not None:
                     self._submitter.shutdown(wait=True)
@@ -410,41 +414,33 @@ class SampleProcessor:
         if ev is None:
             return
         self._col_stream.wait_event(ev)
-        held = [pending.packed]
-        if isinstance(pending.codes, ReadPlanes):  # the legacy engine's rows
-            rows = pending.codes
-            held += [t for t in (rows.lengths, rows.packed, rows.exc, rows.codes) if t is not None]
-        for t in held:
+        for t in pending.held:
             t.record_stream(self._col_stream)
 
     # ------------------------------------------------------------ internals
-    def _consume(self, item) -> None:
-        """Python-batcher path: a short-read batch joins the group, a long
-        read flushes the group and goes to the collector."""
+    def _feed_item(self, item) -> None:
+        """A Python-feed item as a native item (its batch id the count of
+        items before it); under ``minalign > 0`` a batch is replayed."""
         bid, self._items = self._items, self._items + 1
-        with timing.span(self.trace, "submit", bid):
-            if self._verify is not None and isinstance(item, Batch):
-                self._count(item.n_rows)
-                self._replay_verify(item)
-            elif isinstance(item, LongRead):
-                self._flush_group("flush.long")  # account order = read order
-                self._collect(self._long_job, item, bid)
-            else:
-                self._count(item.n_rows)
-                self.seen, pending = self.clf.submit_batch(self.seen, item)
-                self._group.append((pending, item, self._submitted(), bid))
-                if len(self._group) >= self.collect_group:
-                    self._flush_group("flush.full")
+        if isinstance(item, LongRead):
+            long_read = Batch(None, None, _LongMetas(item), 1)
+            self._enqueue(self._consume_native, NativeBatch(long_read, [0], bid))
+        elif self._verify is not None:
+            self._enqueue(self._replay_verify, item, bid)
+        else:
+            self._enqueue(self._consume_native, NativeBatch(item, [], bid))
 
     def _consume_native(self, nb) -> None:
-        """A native batch: its short rows through the engine; with long rows
-        (placeholders of length 0 in the device batch) the group is flushed
-        and the batch collected alone with its long rows (:meth:`_drain_job`)."""
+        """An item of either feed: its device batch through the engine; an
+        item without long rows joins the group, one with long rows flushes
+        the group and is collected alone (:meth:`_drain_job`)."""
         with timing.span(self.trace, "submit", nb.bid):
             batch = nb.batch
-            self._count(batch.n_rows)
-            self.seen, pending = self.clf.submit_batch(self.seen, batch)
-            ev = self._submitted()
+            pending = ev = None
+            if batch.lengths is not None:  # None: a Python-feed long read
+                self._count(batch.n_rows)
+                self.seen, pending = self.clf.submit_batch(self.seen, batch)
+                ev = self._submitted()
             if not nb.long_rows:
                 self._group.append((pending, batch, ev, nb.bid))
                 if len(self._group) >= self.collect_group:
@@ -454,7 +450,7 @@ class SampleProcessor:
                 self._collect(self._drain_job, pending, ev, nb)
 
     def _count(self, rows: int) -> None:
-        """A short-read batch's counters: ``batches`` and ``rows`` (its long
+        """A device batch's counters: ``batches`` and ``rows`` (its long
         rows' placeholders included)."""
         tr = self.trace
         if tr is not None:
@@ -480,68 +476,51 @@ class SampleProcessor:
         with timing.span(self.trace, "collect", grp[0][3]):
             for pending, _, ev, _ in grp:
                 self._receive(pending, ev)
-            if len(grp) == 1 or not hasattr(self.clf, "collect_many"):
-                for pending, batch, _, bid in grp:
-                    self.seen_ovr, finals = self.clf.collect(self.seen_ovr, pending)
-                    with timing.span(self.trace, "collect.account", bid):
-                        self._account_batch(finals[: batch.n_rows], batch.metas)
-                return
             self.seen_ovr, finals_list = self.clf.collect_many(self.seen_ovr,
                                                                [g[0] for g in grp])
             for (_, batch, _, bid), finals in zip(grp, finals_list):
                 with timing.span(self.trace, "collect.account", bid):
                     self._account_batch(finals, batch.metas)
 
-    def _long_job(self, item: LongRead, bid: int) -> None:
-        with timing.span(self.trace, "collect", bid):
-            with timing.span(self.trace, "collect.lane"):
-                self.seen_ovr, final = self.clf.process_long(self.seen_ovr, item)
-            with timing.span(self.trace, "collect.account"):
-                self._account(int(final), item.meta)
-
     def _drain_job(self, pending, ev, nb) -> None:
-        """A native batch with long rows: its short rows' finals, its long
-        rows through the long-read lane together, every row accounted in
-        read order."""
+        """An item with long rows: its device batch's finals (``pending``
+        None: no device batch), its long rows through the long-read lane
+        together, their finals spliced in at their rows, and the item
+        accounted in read order in one pass."""
         with timing.span(self.trace, "collect", nb.bid):
-            self._receive(pending, ev)
-            self.seen_ovr, finals = self.clf.collect(self.seen_ovr, pending)
             batch = nb.batch
+            finals = np.zeros(batch.n_rows, dtype=np.int64)
+            if pending is not None:
+                self._receive(pending, ev)
+                self.seen_ovr, (finals,) = self.clf.collect_many(self.seen_ovr, [pending])
             metas = batch.metas
             long_items = [LongRead(meta=None, codes=metas.seq_codes(i, self.cfg.u_is_t))
                           for i in nb.long_rows]
             with timing.span(self.trace, "collect.lane"):
-                if hasattr(self.clf, "process_long_many"):
-                    self.seen_ovr, long_finals = self.clf.process_long_many(self.seen_ovr,
-                                                                            long_items)
-                else:  # the legacy engine: one read at a time
-                    long_finals = []
-                    for item in long_items:
-                        self.seen_ovr, f = self.clf.process_long(self.seen_ovr, item)
-                        long_finals.append(f)
+                self.seen_ovr, long_finals = self.clf.process_long_many(self.seen_ovr,
+                                                                        long_items)
             with timing.span(self.trace, "collect.account"):
-                final = finals[: batch.n_rows].tolist()
-                for i, f in zip(nb.long_rows, long_finals):
-                    final[i] = f
-                for i, f in enumerate(final):
-                    self._account(int(f), None, metas, i)
+                finals[nb.long_rows] = long_finals
+                self._account_batch(finals, metas)
 
-    def _replay_verify(self, batch: Batch) -> None:
-        """The exact ``minalign > 0`` replay of a batch (engine/verify.py),
-        read by read in read order."""
+    def _replay_verify(self, batch: Batch, bid: int) -> None:
+        """The ``minalign > 0`` step of a Python-feed batch: its exact
+        replay (engine/verify.py), read by read in read order."""
         from kmer_id_tpu_torch.engine.verify import replay_read
 
         v = self._verify
-        self.seen, detail, keys = self.clf.detail_batch(self.seen, batch)
-        for i in range(batch.n_rows):
-            meta = batch.metas[i]
-            full_len = meta.full_len if meta.full_len >= 0 else len(meta.trimmed_seq)
-            final = replay_read(
-                self.clf.taxonomy, self.clf.packed_db, detail[i], meta.trimmed_seq,
-                full_len, v["verifier"], self.gcount, v["ucount"], v["kmer_seen"], keys[i],
-                trim_start=meta.trim_start,
-            )
-            self._account(final, meta)
+        with timing.span(self.trace, "submit", bid):
+            self._count(batch.n_rows)
+            self.seen, detail, keys = self.clf.detail_batch(self.seen, batch)
+            for i in range(batch.n_rows):
+                meta = batch.metas[i]
+                full_len = meta.full_len if meta.full_len >= 0 else len(meta.trimmed_seq)
+                final = replay_read(
+                    self.clf.taxonomy, self.clf.packed_db, detail[i], meta.trimmed_seq,
+                    full_len, v["verifier"], self.gcount, v["ucount"], v["kmer_seen"],
+                    keys[i], trim_start=meta.trim_start,
+                )
+                self._account(final, meta)
 
     def _account_batch(self, finals: np.ndarray, metas) -> None:
         """Vectorized per-batch accounting, equal to :meth:`_account` row by
@@ -580,10 +559,10 @@ class SampleProcessor:
         np.add.at(self.gcount, f, 1)
         self.reads += n
 
-    def _account(self, final: int, meta, metas=None, i: int = -1) -> None:
+    def _account(self, final: int, meta) -> None:
         """Saved-read capture + gcount for one read, in read order
-        (``newkmer_10nx.cpp:608-613``); ``meta`` is read from ``metas[i]``
-        only when the read is written."""
+        (``newkmer_10nx.cpp:608-613``): the verify replay's, whose next read
+        sees this one's ``gcount``."""
         cfg = self.cfg
         if 1 < final < len(self.gcount):
             save_main = (
@@ -593,7 +572,6 @@ class SampleProcessor:
             )
             save_target = self.target_reads_out is not None and final == cfg.save_target
             if save_main or save_target:
-                meta = meta if meta is not None else metas[i]
                 line = f">{final}:{meta.acc}\n{meta.trimmed_seq}\n"
                 if save_main:
                     self.reads_out.write(line)
@@ -602,6 +580,20 @@ class SampleProcessor:
         if 0 <= final < len(self.gcount):
             self.gcount[final] += 1
         self.reads += 1
+
+
+class _LongMetas:
+    """A Python-feed long read as the metas of its one-row item: the two
+    calls the drain makes of the native feed's ``BlobMetas``."""
+
+    def __init__(self, item: LongRead):
+        self.item = item
+
+    def __getitem__(self, i: int):
+        return self.item.meta
+
+    def seq_codes(self, i: int, u_is_t: bool) -> np.ndarray:
+        return self.item.codes  # encoded by the batcher, U read as T there
 
 
 def write_result(path: str, result: SampleResult) -> None:

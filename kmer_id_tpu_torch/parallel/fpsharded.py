@@ -63,8 +63,8 @@ from kmer_id_tpu_torch.db.fpdb import (
 )
 from kmer_id_tpu_torch.db.probes import PackedDB
 from kmer_id_tpu_torch.engine.fpclassify import FpClassifier
-from kmer_id_tpu_torch.engine.host import fold_host, fold_host_many
-from kmer_id_tpu_torch.io.batch import Batch, LongRead
+from kmer_id_tpu_torch.engine.host import Engine, fold_host, fold_host_many
+from kmer_id_tpu_torch.io.batch import Batch
 from kmer_id_tpu_torch.ops.compact import SENT
 from kmer_id_tpu_torch.ops.fold import fold_targets_chain
 from kmer_id_tpu_torch.ops.gate import SHARD_BLOOM_K, ReadPlanes, extract, window_gate
@@ -163,7 +163,7 @@ class ShardPending:
     ovr_any: torch.Tensor
 
 
-class GridRows:
+class GridRows(Engine):
     """What both sharded engines do with rows: this rank's data rows of a
     batch.  Needs ``grid``, ``batch_size``, ``max_len`` and ``device``."""
 
@@ -239,12 +239,10 @@ class GridRows:
 
 
 class ShardedFpClassifier(GridRows):
-    """The fingerprint engine on one rank of a (data x db) grid, with the
-    JAX class's API: ``new_seen`` / ``local_data_rows`` /
-    ``make_global_batch`` / ``submit_batch`` / ``collect`` /
-    ``collect_global`` / ``collect_local`` / ``process_batch`` /
-    ``process_long`` / ``process_long_many`` / ``ucount``.  Every rank of
-    the grid makes the same calls in the same order (module doc)."""
+    """The fingerprint engine on one rank of a (data x db) grid
+    (engine/host.py's :class:`Engine`, with ``collect`` / ``collect_local``
+    and the grid's ``local_data_rows`` / ``make_global_batch``).  Every
+    rank of the grid makes the same calls in the same order (module doc)."""
 
     def __init__(
         self,
@@ -362,8 +360,6 @@ class ShardedFpClassifier(GridRows):
         seen, finals = self._local_finals(seen, pending)
         return seen, self._gather_finals(finals, pending.n_rows)
 
-    collect_global = collect
-
     def collect_local(self, seen, pending: ShardPending):
         """(seen, batch rows of this rank, their finals), rows past the
         batch's ``n_rows`` left out."""
@@ -371,14 +367,6 @@ class ShardedFpClassifier(GridRows):
         rows = self.local_data_rows()
         keep = rows < pending.n_rows
         return seen, rows[keep], finals[keep]
-
-    def process_batch(self, seen, batch: Batch):
-        seen, pending = self.submit_batch(seen, batch)
-        return self.collect(seen, pending)
-
-    def process_long(self, seen, item: LongRead):
-        seen, finals = self.process_long_many(seen, [item])
-        return seen, finals[0]
 
     def process_long_many(self, seen, items: list):
         """Reads longer than ``max_len``: the chunk rows of many reads in

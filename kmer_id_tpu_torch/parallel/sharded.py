@@ -28,7 +28,7 @@ import torch
 
 from kmer_id_tpu_torch.core.taxonomy import Taxonomy
 from kmer_id_tpu_torch.db.probes import PackedDB
-from kmer_id_tpu_torch.engine.classify import resolve_finals
+from kmer_id_tpu_torch.engine.classify import held_rows, resolve_finals
 from kmer_id_tpu_torch.engine.host import PendingBatch, fold_host
 from kmer_id_tpu_torch.io.batch import Batch, LongRead
 from kmer_id_tpu_torch.ops.fold import compact_hits
@@ -43,10 +43,9 @@ MAX_HITS = 32
 
 
 class ShardedClassifier(GridRows):
-    """The legacy engine on one rank of a (data x db) grid, with the JAX
-    class's API: ``new_seen`` / ``submit_batch`` / ``collect`` /
-    ``process_batch`` / ``process_long`` / ``ucount`` (and the grid's
-    ``local_data_rows``, ``make_global_batch``)."""
+    """The legacy engine on one rank of a (data x db) grid (engine/host.py's
+    :class:`Engine`, with ``collect`` and the grid's ``local_data_rows`` /
+    ``make_global_batch``)."""
 
     def __init__(
         self,
@@ -108,7 +107,7 @@ class ShardedClassifier(GridRows):
     def submit_batch(self, seen, batch: Batch):
         reads = self._reads(batch)
         seen, summary = self._step(reads, seen, "compact")
-        return seen, PendingBatch(summary, reads, None, batch.n_rows)
+        return seen, PendingBatch(summary, reads, held_rows(summary, reads), batch.n_rows)
 
     def collect(self, seen, pending: PendingBatch):
         """The whole batch's finals, on every rank."""
@@ -121,17 +120,15 @@ class ShardedClassifier(GridRows):
         finals = resolve_finals(self.taxonomy, pending.packed.cpu().numpy(), get_targets)
         return seen, self._gather_finals(finals, pending.n_rows)
 
-    def process_batch(self, seen, batch: Batch):
-        seen, pending = self.submit_batch(seen, batch)
-        return self.collect(seen, pending)
-
     def _step_targets(self, reads: ReadPlanes, seen):
         return self._step(reads, seen, "targets")
 
-    def process_long(self, seen, item: LongRead):
+    def _long_one(self, seen, item: LongRead):
         """One read longer than ``max_len``: its chunk rows in groups of
         ``batch_size``, each rank's rows through the target plane, the
-        planes gathered over data, folded on the host."""
+        planes gathered over data, folded on the host (the engine's
+        ``process_long_many`` runs its reads one at a time, so the
+        collectives run per read)."""
         seen, seqs = self._long_targets(seen, [item])
         return seen, fold_host(self.taxonomy, seqs[0])
 

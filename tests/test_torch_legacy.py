@@ -370,6 +370,41 @@ def test_process_long_groups_and_batch_sizes(world):
         np.testing.assert_array_equal(seen.numpy(), np.asarray(jseen))
 
 
+def test_collect_many_and_long_many_equal_one_at_a_time(world):
+    """The legacy engine's ``collect_many`` over three pending batches and
+    its ``process_long_many`` over three long reads: the finals and ``seen``
+    marks of ``collect`` batch by batch and of the one-read lane read by
+    read."""
+    codes, lengths = world["codes"], world["lengths"]
+    clf = Classifier(world["packed"], world["tax"], batch_size=B, max_len=W, device="cpu")
+    batches = [Batch(codes=np.roll(codes, s, axis=0), lengths=np.roll(lengths, s), metas=None,
+                     n_rows=B - 5 * s) for s in range(3)]
+    pendings = []
+    seen = clf.new_seen()
+    for b in batches:
+        seen, p = clf.submit_batch(seen, b)
+        pendings.append(p)
+    seen_many, many = clf.collect_many(seen.clone(), pendings)
+    seen_one, one = seen.clone(), []
+    for p in pendings:
+        seen_one, f = clf.collect(seen_one, p)
+        one.append(f)
+    assert [f.tolist() for f in many] == [f.tolist() for f in one]
+    assert [len(f) for f in many] == [B, B - 5, B - 10]
+    assert torch.equal(seen_many, seen_one)
+
+    src = np.random.default_rng(42).integers(0, 4, size=N_PROBES + codec.KSIZE, dtype=np.uint8)
+    items = [LongRead(meta=None, codes=c) for c in (src[:700].copy(), src[2000:2200].copy(),
+                                                    src[10:10 + codec.KSIZE - 1].copy())]
+    seen_many, many = clf.process_long_many(clf.new_seen(), items)
+    seen_one, one = clf.new_seen(), []
+    for it in items:
+        seen_one, f = clf._long_one(seen_one, it)
+        one.append(f)
+    assert many == one and many[0] > 0 and many[2] == 0
+    assert torch.equal(seen_many, seen_one) and int(seen_many[:-1].sum()) > 0
+
+
 # ------------------------------------------------------------ routing
 
 

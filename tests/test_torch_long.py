@@ -224,10 +224,7 @@ def test_fp_summary_matches_jax(world):
     j = _jax_engine(world, batch_size=64)
     planes, lens, _ = t.chunk_rows(_items(reads.values()))
     for mh in (F.LONG_HITS, 32):
-        want = JF._fp_kernel_codes(j._db, jnp.asarray(planes), jnp.asarray(lens),
-                                   max_hits=mh, mode="summary")
         rows = _plane_reads(planes, lens)
-        np.testing.assert_array_equal(F.fp_summary(t._db, rows, mh).numpy(), np.asarray(want))
         jsum, jseen = JF._fp_sum_seen_codes(j._db, jnp.asarray(planes), jnp.asarray(lens),
                                             j.new_seen(), max_hits=mh)
         tseen = t.new_seen()

@@ -10,6 +10,8 @@ JAX package's, on the CPU.
 * ``FpClassifier.collect_many`` equal to per-batch ``collect`` and to the
   JAX ``collect_many``, with a candidate-overflow row in the group.
 * A worker that raises makes ``finish()`` raise, with no worker thread left.
+* Every engine takes engine/host.py's ``Engine``: the sample loop's five
+  calls, ``process_batch`` and ``process_long`` written once.
 * Under ``minalign > 0`` no worker thread exists and the engine runs on the
   calling thread.
 * The kernels' launch counts and ``chip_smoke.legacy_runs`` stay exact when
@@ -37,8 +39,11 @@ from kmer_id_tpu_torch.core.taxonomy import Taxonomy
 from kmer_id_tpu_torch.db.probes import ProbeRecords, pack_probes
 from kmer_id_tpu_torch.engine.classify import Classifier
 from kmer_id_tpu_torch.engine.fpclassify import FpClassifier
+from kmer_id_tpu_torch.engine.host import Engine
 from kmer_id_tpu_torch.engine.pipeline import SampleProcessor
 from kmer_id_tpu_torch.io.batch import ReadBatcher
+from kmer_id_tpu_torch.parallel.fpsharded import ShardedFpClassifier
+from kmer_id_tpu_torch.parallel.sharded import ShardedClassifier
 from tests.test_classify_e2e import make_db, make_reads, rand_dna
 
 PARENT = [1, 1, 1, 2, 2, 4, 1, 6]
@@ -206,10 +211,23 @@ def test_collect_many_equals_collect_and_jax(world):
     assert int(seen_many[:n].sum()) > 0  # the overflow replay marked slots
 
 
+@pytest.mark.parametrize("cls", [Classifier, FpClassifier, ShardedClassifier,
+                                 ShardedFpClassifier])
+def test_engines_take_one_interface(cls):
+    """Each engine answers the sample loop's five calls, and
+    ``process_batch`` and ``process_long`` are written once, in ``Engine``."""
+    assert issubclass(cls, Engine)
+    for name in ("new_seen", "submit_batch", "collect_many", "process_long_many", "ucount",
+                 "collect"):
+        assert callable(getattr(cls, name, None)), name
+    for name in ("process_batch", "process_long"):
+        assert [k for k in cls.__mro__ if name in k.__dict__] == [Engine], name
+
+
 class Failing:
-    """Engine proxy whose ``where`` call (collect or submit_batch) raises on
-    its third call; it has no ``collect_many``, so each batch is collected
-    alone."""
+    """Engine proxy that raises from the third batch through its ``where``
+    side: ``collect`` (the batches of its ``collect_many`` calls) or
+    ``submit_batch``."""
 
     def __init__(self, clf, where):
         self._clf = clf
@@ -217,22 +235,21 @@ class Failing:
         self._n = 0
 
     def __getattr__(self, name):
-        if name == "collect_many":
-            raise AttributeError(name)
         return getattr(self._clf, name)
 
-    def _call(self, name, *a):
-        if name == self._where:
-            self._n += 1
-            if self._n == 3:
-                raise RuntimeError(f"{name} failed on call 3")
-        return getattr(self._clf, name)(*a)
+    def _pass(self, side, batches):
+        if side == self._where:
+            self._n += batches
+            if self._n >= 3:
+                raise RuntimeError(f"{side} failed on batch 3")
 
     def submit_batch(self, seen, batch):
-        return self._call("submit_batch", seen, batch)
+        self._pass("submit_batch", 1)
+        return self._clf.submit_batch(seen, batch)
 
-    def collect(self, seen, pending):
-        return self._call("collect", seen, pending)
+    def collect_many(self, seen, pendings):
+        self._pass("collect", len(pendings))
+        return self._clf.collect_many(seen, pendings)
 
 
 def _workers():
@@ -241,8 +258,9 @@ def _workers():
 
 @pytest.mark.parametrize("where", ["collect", "submit_batch"])
 def test_worker_exception_fails_finish(world, where):
-    """Five batches: the third one's collect (or submit) raises; finish()
-    raises it within the timeout, and both workers have stopped."""
+    """Five batches, collected in groups of 4: the collect (or submit) of
+    the third raises; finish() raises it within the timeout, and both
+    workers have stopped."""
     before = _workers()
     recs = [r for r in world["records"] if not r[0].startswith("L")][: 5 * BATCH]
     out = {}
@@ -262,7 +280,7 @@ def test_worker_exception_fails_finish(world, where):
     t.start()
     t.join(timeout=60)
     assert not t.is_alive()
-    assert out == {"collect_group": 1, "fed": True, "raised": f"{where} failed on call 3"}
+    assert out == {"collect_group": 4, "fed": True, "raised": f"{where} failed on batch 3"}
     assert _workers() - before == set()
 
 
@@ -281,9 +299,9 @@ def test_minalign_runs_on_the_calling_thread(world, tmp_path):
             threads.append(threading.current_thread())
             return clf.detail_batch(seen, batch)
 
-        def process_long(self, seen, item):
+        def process_long_many(self, seen, items):
             threads.append(threading.current_thread())
-            return clf.process_long(seen, item)
+            return clf.process_long_many(seen, items)
 
     before = _workers()
     cfg = ClassifyConfig.preset("vf6", num_targ=8, batch_size=BATCH, max_len=MAX_LEN,
