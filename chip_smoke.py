@@ -2457,8 +2457,8 @@ def stage_phase(device, nx, clf, work=WORK) -> dict:
     (both mates on the native feed; the classifier built beforehand), its
     stages timed apart:
 
-    * decode alone: the native feeder drained over both mates (gz decode,
-      parse, trim, 2-bit packing);
+    * decode alone: a native feeder per mate drained over it, one mate
+      after the other (gz decode, parse, trim, 2-bit packing);
     * the sample's wall, unprofiled, and its reads/s;
     * under torch.profiler (device activity of every thread), with the
       submit steps and the collector jobs timed on the host: host ms of
@@ -2483,10 +2483,12 @@ def stage_phase(device, nx, clf, work=WORK) -> dict:
     fq = os.path.join(work, "fastq")
     mates = [os.path.join(fq, f"big_{m}_tr.fastq.gz") for m in ("R1", "R2")]
     cfg = clf_cfg(nx)
-    feeder = NativePlaneFeeder(nx["batch"], nx["max_len"], False)
     t0 = time.perf_counter()
-    nbs = sum(1 for m in mates for _ in feeder.feed_path(m, fmt="fastq_gz"))
-    nbs += sum(1 for _ in feeder.flush())
+    nbs = 0  # each mate through a feeder of its own, as the sample loop decodes them
+    for m in mates:
+        feeder = NativePlaneFeeder(nx["batch"], nx["max_len"], False)
+        nbs += sum(1 for _ in feeder.feed_path(m, fmt="fastq_gz"))
+        nbs += sum(1 for _ in feeder.flush())
     decode_s = time.perf_counter() - t0
 
     host = {}  # name: [seconds, calls] of the timed steps

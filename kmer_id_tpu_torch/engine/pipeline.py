@@ -15,8 +15,10 @@ takes the rank's rows of each batch), and rank 0 alone writes the files.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
+import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -39,7 +41,8 @@ from kmer_id_tpu_torch.db.probes import (
     save_packed,
 )
 from kmer_id_tpu_torch.io.batch import Batch, LongRead, ReadBatcher
-from kmer_id_tpu_torch.io.native_feed import NativeBatch
+from kmer_id_tpu_torch.io.native import NativeFileReader, detect_format
+from kmer_id_tpu_torch.io.native_feed import NativeBatch, NativePlaneFeeder, native_available
 from kmer_id_tpu_torch.utils.logging import log
 from kmer_id_tpu_torch.utils import timing
 from kmer_id_tpu_torch.engine.classify import Classifier
@@ -147,6 +150,13 @@ def is_main_process() -> bool:
     return world_size() == 1 or dist.get_rank() == 0
 
 
+# files of a request whose native decoders run at once: a pair, the unit the
+# nx and m3 drivers feed.  Each costs an inflate worker and a fill thread,
+# and the sample loop's own three threads share the host's CPUs with them
+# (8 on an H100 host)
+FILES_AT_ONCE = 2
+
+
 @dataclass
 class SampleResult:
     gcount: np.ndarray  # int64 [num_targ]
@@ -167,6 +177,28 @@ class SampleProcessor:
     accounted at their place in read order.  ``target_reads_out`` receives
     every read whose final is ``cfg.save_target`` (vf6 ``-target``).
 
+    **Files at once.**  On the native feed with workers, :meth:`feed_file`
+    opens the file on the calling thread (so that a missing file raises
+    there), gives it a ``NativePlaneFeeder`` of its own on a ``kmer-feed``
+    thread, and returns: up to :data:`FILES_AT_ONCE` files of a request
+    decode at once, and a further file waits for the oldest's decoder to
+    end.  Each file's batches reach the submitter in the file's order, the
+    files' batches interleaved, each batch tagged with its file, and the
+    file's end follows its last batch.  The accounting keeps the reads'
+    order where it shows, in the saved reads (the first ``savenum`` of each
+    target, ``newkmer_10nx.cpp:608-613``): the *head*, the earliest file
+    whose end it has not accounted, is captured as it comes; a later
+    file's reads only count, in ``gcount`` and in the file's own counts,
+    and its lines whose rank for their target within the file is below
+    ``savenum`` are held, in read order.  When the head ends, the next file
+    becomes the head: its held lines are written that the files before it
+    leave room for, and it is captured as it comes from then on.  So the
+    files are byte-identical to one file at a time, and what is held is
+    bounded by ``savenum`` lines per target and file.  Files go one at a
+    time (one feeder, on the calling thread) without workers, on the
+    Python feed, and with a ``target_reads_out``, which saves every read
+    of its target in read order.
+
     Both feeds give the loop ``NativeBatch`` items, a Python-feed long read
     as one long row without a device batch; the engine is an engine/host.py
     :class:`Engine`.
@@ -175,7 +207,8 @@ class SampleProcessor:
 
     * the **submitter** (one worker, FIFO, at most 6 steps queued) runs
       :meth:`_consume_native`: the engine's ``submit_batch``, which marks
-      ``seen``, while the calling thread decodes ahead;
+      ``seen``, while the calling thread (or each file's feed thread)
+      decodes ahead;
     * the **collector** (one worker, at most ``pipeline_depth`` jobs in
       flight) collects, replays candidate overflows, runs the long-read
       lane and accounts, in read order, marking only ``seen_ovr``.  The
@@ -186,10 +219,10 @@ class SampleProcessor:
 
     On a card each worker launches on a stream of its own, and a batch's
     submit is handed to the collector with an event its stream waits on.
-    :meth:`finish` waits for both, synchronises both streams and counts
-    ucount from ``max(seen, seen_ovr)``; an exception on either worker is
-    raised there (or by the next :meth:`feed`) once both workers are shut
-    down.
+    :meth:`finish` joins the feed threads, waits for both workers,
+    synchronises both streams and counts ucount from ``max(seen,
+    seen_ovr)``; the first exception on a feed thread or a worker is raised
+    there (or by the next feed call) once both workers are shut down.
 
     On a grid of more than one rank (a sharded engine of ``parallel/``)
     there are no workers either, and no groups: every rank submits every
@@ -202,7 +235,10 @@ class SampleProcessor:
     A traced sample (utils/timing.py: the switch, or a recording profiler,
     as it is built) records its spans and counters in :attr:`trace`: each
     worker job runs with it as the thread's current trace, and each batch
-    keeps its feeder's emit order as its id from decode to collect.
+    keeps its id from decode to collect (one counter for the sample's
+    feeders).  The counter ``feed.overlap`` counts the batches emitted while
+    another file of the request was still decoding; ``feed.join`` is
+    :meth:`finish`'s wait for the feed threads.
 
     Under ``cfg.minalign > 0`` (a legacy engine) there are no workers:
     everything runs on the calling thread, in read order.  The Python feed
@@ -221,8 +257,6 @@ class SampleProcessor:
         target_reads_out: Optional[TextIO] = None,
         use_native: bool | None = None,
     ):
-        from kmer_id_tpu_torch.io.native_feed import NativePlaneFeeder, native_available
-
         self.trace = timing.new_trace()  # None untraced (utils/timing.py)
         self._items = 0  # the Python feed's items, in order: their batch ids
         with timing.span(self.trace, "sample.start"):
@@ -241,15 +275,30 @@ class SampleProcessor:
             if cfg.minalign > 0:
                 use_native = False
             self.native = native_available() if use_native is None else use_native
+            overlap = cfg.minalign == 0 and world_size() == 1
+            # files at once (the class doc), else one feeder for every file
+            self._at_once = self.native and overlap and target_reads_out is None
             self._feeder = (
                 NativePlaneFeeder(clf.batch_size, clf.max_len, cfg.u_is_t, trace=self.trace)
-                if self.native
+                if self.native and not self._at_once
                 else None
             )
-            overlap = cfg.minalign == 0 and world_size() == 1
+            self._ids = itertools.count()  # the files' feeders' batch ids
+            self._feeds: deque = deque()  # the feed threads not yet joined, oldest first
+            self._files = 0  # files started: the next file's index
+            self._decoding = 0  # files whose feed thread is running
+            self._lock = threading.Lock()  # _sub_q, _decoding and _error
+            self._error: Optional[BaseException] = None  # the first one, raised by finish
+            self._closing: list = []  # ended files, to the collector with the next group
+            # the collector's: the head file, files ended, each later file's
+            # (counts, held lines), and the counts of the later files
+            self._head = 0
+            self._closed: set = set()
+            self._later: dict = {}
+            self._ahead = np.zeros(clf.num_targ, dtype=np.int64)
             self.pipeline_depth = 4 if overlap else 0  # collector jobs in flight
             self.collect_group = 4 if overlap else 1
-            self._group: list = []  # [(pending, batch, event, batch id)] awaiting a group job
+            self._group: list = []  # [(pending, event, NativeBatch)] awaiting a group job
             self._inflight: deque = deque()  # the collector's futures, FIFO
             self._sub_q: deque = deque()  # the submitter's futures, FIFO
             self._submitter = self._collector = None
@@ -287,15 +336,19 @@ class SampleProcessor:
 
     def feed_file(self, path, fmt: str | None = None) -> None:
         """Stream one read file (extension-dispatched, vf6:1133-1152; pass
-        ``fmt`` to force a parser, as the nx driver does for FASTQ)."""
+        ``fmt`` to force a parser, as the nx driver does for FASTQ); with
+        files at once (the class doc), start it and return."""
+        path = str(path)
+        if self._at_once:
+            self._start_file(path, fmt)
+            return
         if self._feeder is not None:
-            for nb in self._feeder.feed_path(str(path), fmt=fmt):
+            for nb in self._feeder.feed_path(path, fmt=fmt):
                 self._enqueue(self._consume_native, nb)
             return
         from kmer_id_tpu_torch.io import fastx
-        from kmer_id_tpu_torch.io.native import detect_format
 
-        fmt = fmt or detect_format(str(path))
+        fmt = fmt or detect_format(path)
         iters = {
             "fastq_gz": fastx.iter_fastq_gz,
             "fastq": fastx.iter_fastq_plain,
@@ -303,11 +356,16 @@ class SampleProcessor:
             "fasta": fastx.iter_fasta_plain,
         }
         if fmt in iters:
-            self.feed(iters[fmt](str(path)))
+            self.feed(iters[fmt](path))
 
     def finish(self) -> SampleResult:
+        timing.count(self.trace, "feed.overlap", 0)  # 0, not missing, where files went singly
+        with timing.span(self.trace, "feed.join"):
+            while self._feeds:
+                self._feeds.popleft().join()
         with timing.span(self.trace, "sample.finish"):
             try:
+                self._raise_failed()
                 if self._feeder is not None:
                     for nb in self._feeder.flush():
                         self._enqueue(self._consume_native, nb)
@@ -341,6 +399,61 @@ class SampleProcessor:
             wall_s=wall, stage_s=stages, trace=self.trace,
         )
 
+    # ------------------------------------------------------------ files at once
+    def _start_file(self, path: str, fmt: str | None) -> None:
+        """Open ``path`` here and decode it on a ``kmer-feed`` thread, once
+        fewer than :data:`FILES_AT_ONCE` files decode."""
+        while len(self._feeds) >= FILES_AT_ONCE:
+            self._feeds.popleft().join()
+        self._raise_failed()
+        fmt = fmt or detect_format(path)
+        if fmt is None:
+            return
+        reader = NativeFileReader(path, fmt, self.cfg.u_is_t)
+        feeder = NativePlaneFeeder(self.clf.batch_size, self.clf.max_len, self.cfg.u_is_t,
+                                   trace=self.trace, ids=self._ids)
+        file, self._files = self._files, self._files + 1
+        with self._lock:
+            self._decoding += 1
+        t = threading.Thread(target=self._decode_file, args=(feeder, reader, file),
+                             name=f"kmer-feed_{file}")
+        self._feeds.append(t)
+        t.start()
+
+    def _decode_file(self, feeder, reader, file: int) -> None:
+        """A feed thread: the file's batches to the submitter in its order,
+        then its end (:meth:`_end_file`); an exception is kept for
+        :meth:`finish` and stops both workers."""
+        try:
+            for nb in itertools.chain(feeder.feed_reader(reader), feeder.flush()):
+                nb.file = file
+                timing.count(self.trace, "feed.overlap", int(self._decoding > 1))
+                self._enqueue(self._consume_native, nb)
+            self._enqueue(self._end_file, file)
+        except BaseException as e:  # noqa: BLE001 -- raised on the calling thread
+            self._fail(e)
+        finally:
+            reader.close()
+            with self._lock:
+                self._decoding -= 1
+
+    def _end_file(self, file: int) -> None:
+        """On the submitter, after ``file``'s last batch: its end goes to
+        the collector with the next group, or to :meth:`_barrier`
+        (:meth:`_close_file`)."""
+        self._closing.append(file)
+
+    def _fail(self, exc: BaseException) -> None:
+        """Keep the sample's first exception and stop both workers."""
+        with self._lock:
+            if self._error is None:
+                self._error = exc
+        self._shutdown()
+
+    def _raise_failed(self) -> None:
+        if self._error is not None:
+            raise self._error
+
     # ------------------------------------------------------------ workers
     def _on_stream(self, stream, fn, *a):
         """``fn(*a)`` with the sample's trace as the thread's current trace
@@ -355,28 +468,37 @@ class SampleProcessor:
 
     def _enqueue(self, fn, *a) -> None:
         """Run a consume step on the submitter thread (FIFO, at most 6
-        queued), or inline without workers."""
+        queued, from the calling thread or the feed threads), or inline
+        without workers."""
         if self._submitter is None:
             self._on_stream(None, fn, *a)
             return
-        self._sub_q.append(self._submitter.submit(self._on_stream, self._sub_stream, fn, *a))
-        if len(self._sub_q) > 6:
+        self._raise_failed()
+        with self._lock:
+            self._sub_q.append(self._submitter.submit(self._on_stream, self._sub_stream, fn, *a))
+            full = len(self._sub_q) > 6
+        if full:
             with timing.span(self.trace, "feed.wait"):
-                while len(self._sub_q) > 6:
-                    self._result(self._sub_q.popleft())
+                while (fut := self._queued_past(6)) is not None:
+                    self._result(fut)
+
+    def _queued_past(self, n: int):
+        """The oldest submitter future while more than ``n`` are queued."""
+        with self._lock:
+            return self._sub_q.popleft() if len(self._sub_q) > n else None
 
     def _result(self, fut) -> None:
-        """A submitter future's result, read on the calling thread; on an
-        exception both workers are shut down before it is raised."""
+        """A submitter future's result; on an exception both workers are
+        shut down before it is raised."""
         try:
             fut.result()
-        except BaseException:
-            self._shutdown()
+        except BaseException as e:
+            self._fail(e)
             raise
 
     def _drain_submits(self) -> None:
-        while self._sub_q:
-            self._result(self._sub_q.popleft())
+        while (fut := self._queued_past(0)) is not None:
+            self._result(fut)
 
     def _shutdown(self) -> None:
         """Stop both workers: queued steps are cancelled, running ones end
@@ -420,15 +542,16 @@ class SampleProcessor:
     # ------------------------------------------------------------ internals
     def _feed_item(self, item) -> None:
         """A Python-feed item as a native item (its batch id the count of
-        items before it); under ``minalign > 0`` a batch is replayed."""
+        items before it, its file the one after the files started); under
+        ``minalign > 0`` a batch is replayed."""
         bid, self._items = self._items, self._items + 1
         if isinstance(item, LongRead):
             long_read = Batch(None, None, _LongMetas(item), 1)
-            self._enqueue(self._consume_native, NativeBatch(long_read, [0], bid))
+            self._enqueue(self._consume_native, NativeBatch(long_read, [0], bid, self._files))
         elif self._verify is not None:
             self._enqueue(self._replay_verify, item, bid)
         else:
-            self._enqueue(self._consume_native, NativeBatch(item, [], bid))
+            self._enqueue(self._consume_native, NativeBatch(item, [], bid, self._files))
 
     def _consume_native(self, nb) -> None:
         """An item of either feed: its device batch through the engine; an
@@ -442,7 +565,7 @@ class SampleProcessor:
                 self.seen, pending = self.clf.submit_batch(self.seen, batch)
                 ev = self._submitted()
             if not nb.long_rows:
-                self._group.append((pending, batch, ev, nb.bid))
+                self._group.append((pending, ev, nb))
                 if len(self._group) >= self.collect_group:
                     self._flush_group("flush.full")
             else:
@@ -458,29 +581,35 @@ class SampleProcessor:
             tr.add("rows", rows)
 
     def _flush_group(self, why: str) -> None:
-        """Close the group into a collector job; ``why`` is the trace's
-        counter of the reason (``flush.full``, ``flush.long``,
-        ``flush.finish``)."""
+        """Close the group, with the files ended since the last one, into a
+        collector job; ``why`` is the trace's counter of the reason
+        (``flush.full``, ``flush.long``, ``flush.finish``)."""
         if self._group:
-            grp, self._group = self._group, []
+            grp, closing = self._group, self._closing
+            self._group, self._closing = [], []
             timing.count(self.trace, why)
-            self._collect(self._group_job, grp)
+            self._collect(self._group_job, grp, closing)
 
     def _barrier(self) -> None:
-        """Wait for every queued collector job (order/exception barrier)."""
+        """Wait for every queued collector job (order/exception barrier),
+        then close the files ended since the last group."""
         self._flush_group("flush.finish")
         while self._inflight:
             self._inflight.popleft().result()
+        for file in self._closing:
+            self._close_file(file)
 
-    def _group_job(self, grp) -> None:
-        with timing.span(self.trace, "collect", grp[0][3]):
-            for pending, _, ev, _ in grp:
+    def _group_job(self, grp, closing=()) -> None:
+        with timing.span(self.trace, "collect", grp[0][2].bid):
+            for pending, ev, _ in grp:
                 self._receive(pending, ev)
             self.seen_ovr, finals_list = self.clf.collect_many(self.seen_ovr,
                                                                [g[0] for g in grp])
-            for (_, batch, _, bid), finals in zip(grp, finals_list):
-                with timing.span(self.trace, "collect.account", bid):
-                    self._account_batch(finals, batch.metas)
+            for (_, _, nb), finals in zip(grp, finals_list):
+                with timing.span(self.trace, "collect.account", nb.bid):
+                    self._account_item(finals, nb.batch.metas, nb.file)
+        for file in closing:
+            self._close_file(file)
 
     def _drain_job(self, pending, ev, nb) -> None:
         """An item with long rows: its device batch's finals (``pending``
@@ -501,7 +630,7 @@ class SampleProcessor:
                                                                         long_items)
             with timing.span(self.trace, "collect.account"):
                 finals[nb.long_rows] = long_finals
-                self._account_batch(finals, metas)
+                self._account_item(finals, metas, nb.file)
 
     def _replay_verify(self, batch: Batch, bid: int) -> None:
         """The ``minalign > 0`` step of a Python-feed batch: its exact
@@ -522,11 +651,19 @@ class SampleProcessor:
                 )
                 self._account(final, meta)
 
+    def _account_item(self, finals: np.ndarray, metas, file: int) -> None:
+        """An item's finals, by its file: the head's accounted
+        (:meth:`_account_batch`), a later file's held (:meth:`_hold_batch`)."""
+        if file == self._head:
+            self._account_batch(finals, metas)
+        else:
+            self._hold_batch(finals, metas, file)
+
     def _account_batch(self, finals: np.ndarray, metas) -> None:
         """Vectorized per-batch accounting, equal to :meth:`_account` row by
         row: the first-SAVENUM capture decision for row i depends on
-        gcount[final] counting earlier rows only, reconstructed from
-        per-target ranks within the batch."""
+        gcount[final] counting earlier rows only (the later files' counts
+        left out), reconstructed from per-target ranks within the batch."""
         cfg = self.cfg
         finals = np.asarray(finals, dtype=np.int64)
         n = len(finals)
@@ -537,16 +674,7 @@ class SampleProcessor:
         gt1 = np.nonzero(valid & (finals > 1))[0]
         if (want_main or want_target) and len(gt1):
             ff = finals[gt1]
-            order = np.argsort(ff, kind="stable")
-            sf = ff[order]
-            first = np.concatenate([[0], np.nonzero(sf[1:] != sf[:-1])[0] + 1])
-            starts = np.zeros(len(sf), dtype=np.int64)
-            starts[first] = np.arange(len(sf))[first]
-            np.maximum.accumulate(starts, out=starts)
-            rank = np.arange(len(sf)) - starts  # occurrences before, in batch
-            rank_unsorted = np.empty(len(sf), dtype=np.int64)
-            rank_unsorted[order] = rank
-            before = self.gcount[ff] + rank_unsorted
+            before = self.gcount[ff] - self._ahead[ff] + _ranks(ff)
             main = set(gt1[before < cfg.savenum].tolist()) if want_main else set()
             target = set(gt1[ff == cfg.save_target].tolist()) if want_target else set()
             for i in sorted(main | target):  # ascending rows
@@ -558,6 +686,49 @@ class SampleProcessor:
                     self.target_reads_out.write(line)
         np.add.at(self.gcount, f, 1)
         self.reads += n
+
+    def _hold_batch(self, finals: np.ndarray, metas, file: int) -> None:
+        """A batch of a file after the head (the class doc): counted in
+        ``gcount`` and in the file's own counts, and the lines whose rank
+        for their target within the file is below ``savenum`` held, in read
+        order, for :meth:`_close_file` (a ``target_reads_out`` feeds files
+        one at a time).  A line is dropped at once where the reads the head
+        and the files before it have counted so far leave it no room."""
+        cfg = self.cfg
+        counts, held = self._later.setdefault(file, (np.zeros_like(self.gcount), []))
+        finals = np.asarray(finals, dtype=np.int64)
+        valid = (finals >= 0) & (finals < len(self.gcount))
+        if self.reads_out is not None and (cfg.variant == "nx" or cfg.save_target == 0):
+            gt1 = np.nonzero(valid & (finals > 1))[0]
+            ff = finals[gt1]
+            before = counts[ff] + _ranks(ff)  # rank within the file
+            keep = self.gcount[ff] - self._ahead[ff] + before < cfg.savenum
+            for i, b in zip(gt1[keep].tolist(), before[keep].tolist()):
+                meta = metas[i]
+                held.append((int(finals[i]), b, f">{finals[i]}:{meta.acc}\n{meta.trimmed_seq}\n"))
+        add = np.bincount(finals[valid], minlength=len(self.gcount))
+        self.gcount += add
+        self._ahead += add
+        counts += add
+        self.reads += len(finals)
+
+    def _close_file(self, file: int) -> None:
+        """On the collector, after ``file``'s last batch: while the head
+        has ended, the next file becomes the head, and of its held lines
+        those are written whose rank within the file, after the reads of
+        the files before it, is below ``savenum``."""
+        self._closed.add(file)
+        while self._head in self._closed:
+            self._head += 1
+            later = self._later.pop(self._head, None)
+            if later is None:
+                continue
+            counts, held = later
+            self._ahead -= counts
+            before = self.gcount - self._ahead - counts  # the files before it
+            for t, rank, line in held:
+                if before[t] + rank < self.cfg.savenum:
+                    self.reads_out.write(line)
 
     def _account(self, final: int, meta) -> None:
         """Saved-read capture + gcount for one read, in read order
@@ -580,6 +751,21 @@ class SampleProcessor:
         if 0 <= final < len(self.gcount):
             self.gcount[final] += 1
         self.reads += 1
+
+
+def _ranks(ff: np.ndarray) -> np.ndarray:
+    """Each entry's count of equal entries before it in ``ff``."""
+    if not len(ff):
+        return np.zeros(0, dtype=np.int64)
+    order = np.argsort(ff, kind="stable")
+    sf = ff[order]
+    first = np.concatenate([[0], np.nonzero(sf[1:] != sf[:-1])[0] + 1])
+    starts = np.zeros(len(sf), dtype=np.int64)
+    starts[first] = np.arange(len(sf))[first]
+    np.maximum.accumulate(starts, out=starts)
+    rank = np.empty(len(sf), dtype=np.int64)
+    rank[order] = np.arange(len(sf)) - starts
+    return rank
 
 
 class _LongMetas:

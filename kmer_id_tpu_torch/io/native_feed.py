@@ -18,10 +18,16 @@ plane (io/native), so emitting a batch no longer calls
 package's feeder's (tests/test_torch_host.py).  The native reader inflates
 each file on a worker thread ahead of the fill (io/native).  It also keeps
 batch ids and a trace (below).
+
+A feeder decodes one stream: a plain caller feeds it file after file, and a
+file's last batch is topped up by the next file's first reads.  The sample
+loop (engine/pipeline.py) gives each file of a request a feeder of its own on
+a thread of its own, the files' feeders sharing one counter of batch ids.
 """
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from typing import Iterator, Optional
 
@@ -69,6 +75,7 @@ class NativeBatch:
     batch: Batch
     long_rows: list[int]  # row indices whose true read exceeds max_len
     bid: int = -1  # the batch's id: the feeder's emit order
+    file: int = 0  # the index of the request's file it was read from
 
 
 class NativePlaneFeeder:
@@ -81,15 +88,21 @@ class NativePlaneFeeder:
     counts the batches whose exceptions overflowed ``EXC_CAP``, which ship
     their u8 plane, and ``inflate.blocks``, ``inflate.waits`` and
     ``inflate.wait_us`` count the read-ahead blocks the fills took, how many
-    of them they waited for, and the microseconds they waited."""
+    of them they waited for, and the microseconds they waited.
+
+    Each plane takes its batch id from ``ids`` as it is made: without one,
+    from the feeder's own count, so that the ids are the emit order; a
+    counter shared by feeders keeps their batches' ids unique."""
 
     def __init__(self, batch_size: int, max_len: int, u_is_t: bool,
-                 acc_cap_per_row: int = 256, seq_cap_per_row: int = 1024, trace=None):
+                 acc_cap_per_row: int = 256, seq_cap_per_row: int = 1024, trace=None,
+                 ids: Optional[Iterator[int]] = None):
         self.b = batch_size
         self.l = max_len
         self.u_is_t = u_is_t
         self.trace = trace
-        self.emitted = 0  # batches emitted so far: the next batch's id
+        self.emitted = 0  # batches emitted so far
+        self._ids = itertools.count() if ids is None else ids
         self._new_plane()
         self.acc_cap = self.b * acc_cap_per_row
         self.seq_cap = self.b * seq_cap_per_row
@@ -107,15 +120,16 @@ class NativePlaneFeeder:
         self.exc = np.full(EXC_CAP, -1, dtype=np.int32)
         self.n_exc = np.zeros(1, dtype=np.int32)
         self.row = 0
+        self.bid = next(self._ids)  # the id of the batch this plane becomes
 
     def _emit(self) -> NativeBatch:
-        with timing.span(self.trace, "decode.pack", self.emitted):
+        with timing.span(self.trace, "decode.pack", self.bid):
             nb = self._pack()
         self.emitted += 1
         return nb
 
     def _pack(self) -> NativeBatch:
-        n = self.row
+        n, bid = self.row, self.bid
         self.codes[n:] = INVALID  # padding rows: pad codes, packed as zeros
         self.packed[n:] = 0
         metas = BlobMetas(
@@ -139,16 +153,21 @@ class NativePlaneFeeder:
         self._new_plane()
         self.acc_off[0] = 0
         self.seq_off[0] = 0
-        return NativeBatch(batch=batch, long_rows=long_rows, bid=self.emitted)
+        return NativeBatch(batch=batch, long_rows=long_rows, bid=bid)
 
     def feed_path(self, path: str, fmt: str | None = None) -> Iterator[NativeBatch]:
         fmt = fmt or detect_format(path)
         if fmt is None:
             return
-        reader = NativeFileReader(path, fmt, self.u_is_t)
+        yield from self.feed_reader(NativeFileReader(path, fmt, self.u_is_t))
+
+    def feed_reader(self, reader: NativeFileReader) -> Iterator[NativeBatch]:
+        """The full batches of an open reader's file, which it closes at
+        the end; the last rows stay in the plane for the next file or
+        :meth:`flush`."""
         try:
             while True:
-                with timing.span(self.trace, "decode.fill", self.emitted):
+                with timing.span(self.trace, "decode.fill", self.bid):
                     filled, eof, (blocks, waits, wait_ns) = reader.fill(
                         self.row, self.codes, self.lengths,
                         self.packed, self.exc, self.n_exc,

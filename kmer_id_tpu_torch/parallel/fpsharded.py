@@ -62,6 +62,7 @@ from kmer_id_tpu_torch.db.fpdb import (
     build_tinfo,
 )
 from kmer_id_tpu_torch.db.probes import PackedDB
+from kmer_id_tpu_torch.engine.classify import held_rows
 from kmer_id_tpu_torch.engine.fpclassify import FpClassifier
 from kmer_id_tpu_torch.engine.host import Engine, fold_host, fold_host_many
 from kmer_id_tpu_torch.io.batch import Batch
@@ -161,6 +162,13 @@ class ShardPending:
     codes: ReadPlanes
     n_rows: int
     ovr_any: torch.Tensor
+
+    @property
+    def held(self) -> list:
+        """The device tensors the collect reads (engine/host.py's
+        ``PendingBatch.held``): a one-rank grid's collector takes them on
+        its own stream."""
+        return held_rows(self.packed, self.codes) + [self.ovr_any]
 
 
 class GridRows(Engine):

@@ -224,6 +224,28 @@ def test_engines_take_one_interface(cls):
         assert [k for k in cls.__mro__ if name in k.__dict__] == [Engine], name
 
 
+def test_pendings_name_the_tensors_their_collect_reads(world):
+    """``_receive`` marks a pending batch's ``held`` tensors as used on the
+    collector's stream: every engine's pending batch has them, the
+    fingerprint grid's ``ShardPending`` among them."""
+    import torch
+
+    from kmer_id_tpu_torch.ops.gate import ReadPlanes
+    from kmer_id_tpu_torch.parallel.fpsharded import ShardPending
+
+    rb = ReadBatcher(BATCH, MAX_LEN, u_is_t=False)
+    short = [r for r in world["records"] if r[0].lstrip("@").startswith("r")][:BATCH]
+    (batch,) = [b for r in short for b in rb.add(*r)] + list(rb.flush())
+    _, pending = world["clf"].submit_batch(world["clf"].new_seen(), batch)
+    assert pending.held and all(isinstance(t, torch.Tensor) for t in pending.held)
+    reads = ReadPlanes.from_batch(batch, "cpu", MAX_LEN)
+    finals, ovr = torch.zeros(BATCH, dtype=torch.int32), torch.zeros((), dtype=torch.int32)
+    held = ShardPending(finals, reads, BATCH, ovr).held
+    assert held[0] is finals and held[-1] is ovr
+    assert {id(t) for t in held} >= {id(t) for t in (reads.lengths, reads.packed)
+                                     if t is not None}
+
+
 class Failing:
     """Engine proxy that raises from the third batch through its ``where``
     side: ``collect`` (the batches of its ``collect_many`` calls) or

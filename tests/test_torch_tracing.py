@@ -3,9 +3,10 @@ spans and counters of the sample loop, on the drivers tests' small world.
 
 * Off (the default, no profiler): nothing is kept, ``recent()`` stays
   empty and no ``record_function`` is entered.
-* With the switch on: every span on its thread, the counters against what
-  the feeder emitted and the group rule, each submit and collect span under
-  a batch id the decoder packed, the kernel-build span.
+* With the switch on: every span on its thread (the decoder's on the
+  files' feed threads), the counters against what the feeders emitted and
+  the group rule, each submit and collect span under a batch id the
+  decoder packed, the kernel-build span.
 * Under ``torch.profiler`` without the switch: the sample is traced and the
   ``kmerid::`` ranges are among the profile's events; ``--profile`` writes
   them into its Chrome trace.
@@ -26,8 +27,8 @@ import torch
 from kmer_id_tpu_torch.utils import timing
 from tests.test_torch_drivers import NUM_TARG, world  # noqa: F401  (the fixture)
 
-CALLING = {"sample.start", "decode.fill", "decode.pack", "feed.wait", "sample.finish",
-           "sample.write"}
+CALLING = {"sample.start", "feed.join", "sample.finish", "sample.write"}
+FEED = {"decode.fill", "decode.pack", "feed.wait"}  # each file's kmer-feed thread
 SUBMITTER = {"submit", "submit.wait"}
 COLLECTOR = {"collect", "collect.fetch", "collect.replay", "collect.lane", "collect.account"}
 METRICS = ["decode_fill_ms_per_batch", "decode_pack_ms_per_batch",
@@ -99,16 +100,20 @@ def _cfg(**kw):
     return ClassifyConfig.preset("vf6", **base)
 
 
-def _sample(world, eng, files=("short.fastq.gz", "contigs.fasta"), out=None):  # noqa: F811
+def _sample(world, eng, files=("short.fastq.gz", "contigs.fasta"), out=None,  # noqa: F811
+            target_out=None):
     """One sample through SampleProcessor on the native feed; with ``out``,
-    its ``_result.txt`` and ``_reads.txt`` written there.  Returns
-    (processor, result)."""
+    its ``_result.txt`` and ``_reads.txt`` written there; with
+    ``target_out``, target 2's reads saved there (so its files go one at a
+    time).  Returns (processor, result)."""
     from kmer_id_tpu_torch.engine.pipeline import SampleProcessor, write_result
 
     reads_out = open(f"{out}_reads.txt", "w") if out else io.StringIO()
+    kw = {} if target_out is None else {"save_target": 2}
     try:
-        sp = SampleProcessor(eng, _cfg(batch_size=eng.batch_size, max_len=eng.max_len),
-                             reads_out=reads_out, use_native=True)
+        sp = SampleProcessor(eng, _cfg(batch_size=eng.batch_size, max_len=eng.max_len, **kw),
+                             reads_out=reads_out, target_reads_out=target_out,
+                             use_native=True)
         assert sp.native and sp.collect_group == 4
         for name in files:
             sp.feed_file(str(world["reads"] / name))
@@ -143,11 +148,26 @@ def _count_ranges(monkeypatch):
     monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", _Counting)
 
 
+def _feeders(monkeypatch) -> list:
+    """The native feeders the sample loop makes from now on."""
+    from kmer_id_tpu_torch.engine import pipeline
+
+    made, cls = [], pipeline.NativePlaneFeeder
+
+    def make(*a, **kw):
+        made.append(cls(*a, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(pipeline, "NativePlaneFeeder", make)
+    return made
+
+
 def test_off_keeps_nothing(world, engines, monkeypatch):  # noqa: F811
     _count_ranges(monkeypatch)
+    feeders = _feeders(monkeypatch)
     sp, res = _sample(world, engines())
     assert sp.trace is None and res.trace is None and res.stage_s == {}
-    assert sp._feeder.trace is None
+    assert len(feeders) == 2 and all(f.trace is None for f in feeders)
     assert timing.recent() == [] and timing.current() is None
     assert _Counting.entered == 0
     assert timing.span(None, "submit") is timing.span(None, "collect")  # one shared no-op
@@ -155,6 +175,7 @@ def test_off_keeps_nothing(world, engines, monkeypatch):  # noqa: F811
 
 def test_spans_on_their_threads_and_counters(world, engines, monkeypatch):  # noqa: F811
     _count_ranges(monkeypatch)
+    feeders = _feeders(monkeypatch)
     timing.set_tracing(True)
     sp, res = _sample(world, Slow(engines()))
     tr = sp.trace
@@ -168,18 +189,28 @@ def test_spans_on_their_threads_and_counters(world, engines, monkeypatch):  # no
         assert (cpu is not None and cpu >= 0) if name in timing.CPU_SPANS else cpu is None
     # the engine's branches: ``sync`` on the submitter, the long lane's
     # ``collect.lane.sync`` on the collector
-    assert set(threads) == CALLING | SUBMITTER | COLLECTOR | {"sync", "collect.lane.sync"}
+    assert set(threads) == (CALLING | FEED | SUBMITTER | COLLECTOR
+                            | {"sync", "collect.lane.sync"})
     for name in CALLING:
         assert threads[name] == {threading.main_thread().name}, name
-    for name in SUBMITTER | {"sync"}:
+    for name in FEED:
+        assert threads[name] == {"kmer-feed"}, name
+    for name in ("submit", "sync"):
         assert threads[name] == {"kmer-submit"}, name
+    # the collector's depth, waited for by the submitter and by finish's last
+    # group, which holds a short batch where the files' batches end with one
+    assert "kmer-submit" in threads["submit.wait"]
+    assert threads["submit.wait"] <= {"kmer-submit", threading.main_thread().name}
     for name in COLLECTOR | {"collect.lane.sync"}:
         assert threads[name] == {"kmer-collect"}, name
 
     c = tr.counters
-    assert c["batches"] == sp._feeder.emitted and c["rows"] == res.reads
+    assert c["batches"] == sum(f.emitted for f in feeders) and c["rows"] == res.reads
+    assert 0 <= c["feed.overlap"] <= c["batches"]
     assert c["pack.plane"] == 0  # every batch shipped the fill's words
-    assert c["flush.long"] > 0
+    # a batch with long rows closes the group where it finds one open: how
+    # the two files' batches interleave decides (the group rule's own test)
+    assert c.get("flush.long", 0) <= sum(1 for s in tr.spans if s[0] == "collect.lane")
     assert c["fetches"] == sum(1 for s in tr.spans if s[0] == "collect.fetch")
     summary = tr.summary
     assert summary["sample"] == tr.sample and summary["counters"] == c
@@ -188,14 +219,16 @@ def test_spans_on_their_threads_and_counters(world, engines, monkeypatch):  # no
         assert s["wall_ns"] >= 0 and (s["cpu_ns"] >= 0 if name in timing.CPU_SPANS
                                       else "cpu_ns" not in s)
 
-    packed = {b for name, b, *_ in tr.spans if name == "decode.pack"}
-    assert packed == set(range(c["batches"]))
+    # the files' feeders share one counter: every batch id is unique
+    packed = [b for name, b, *_ in tr.spans if name == "decode.pack"]
+    assert len(set(packed)) == len(packed) == c["batches"]
+    assert {b for name, b, *_ in tr.spans if name == "submit"} == set(packed)
     for name, b, *_ in tr.spans:
         if name in ("submit", "collect", "collect.fetch", "collect.account"):
             assert b in packed, (name, b)
 
 
-def test_inflate_counters(world, engines):  # noqa: F811
+def test_inflate_counters(world, engines, monkeypatch):  # noqa: F811
     """The native reader's read-ahead counters: none in an untraced sample;
     in a traced one the blocks the fills took (each small file is one),
     how many of them they waited for and the microseconds waited, read by
@@ -203,8 +236,10 @@ def test_inflate_counters(world, engines):  # noqa: F811
     from benchmark import spec
 
     read = spec.reader("decode_inflate_wait_ms_per_batch")
+    feeders = _feeders(monkeypatch)
     sp, res = _sample(world, engines())
-    assert sp._feeder.trace is None and res.stage_s == {} and timing.recent() == []
+    assert all(f.trace is None for f in feeders) and res.stage_s == {}
+    assert timing.recent() == []
     assert read(None) is None
     timing.set_tracing(True)
     sp, res = _sample(world, engines())
@@ -227,26 +262,40 @@ def test_kernel_build_span(monkeypatch):
     assert build.build_many(["gate"])["gate"][0] == "libgate.so"  # no trace: no record
 
 
-@pytest.mark.parametrize("files, want", [
+@pytest.mark.parametrize("files, one_at_a_time, want", [
     # 150 reads in batches of 17: 9 batches, groups of 4, 4 and the last
     # closed by finish: 3 fetches
-    (("short.fastq.gz",), {"batches": 9, "fetches": 3, "flush.full": 2, "flush.finish": 1,
-                           "flush.long": 0}),
-    # then contigs past max_len: the first batch with long rows closes the
-    # group of short batches before it, and is fetched alone
-    (("short.fastq.gz", "contigs.fasta"), {"batches": 11, "flush.full": 2, "flush.long": 1}),
+    (("short.fastq.gz",), False, {"batches": 9, "fetches": 3, "flush.full": 2,
+                                  "flush.finish": 1, "flush.long": 0}),
+    # then contigs past max_len, the files one at a time (a target's reads
+    # saved): the first batch with long rows closes the group of short
+    # batches before it, and is fetched alone
+    (("short.fastq.gz", "contigs.fasta"), True, {"batches": 11, "flush.full": 2,
+                                                 "flush.long": 1}),
+    # at once: in batches of 16, 10, and the 24 contigs in 2 of their own
+    # file, each drained alone; how the two files' batches interleave, and
+    # so which groups a drained batch closes early, is the threads' timing
+    (("short.fastq.gz", "contigs.fasta"), False, {"batches": 12}),
 ])
-def test_fetches_follow_the_group_rule(world, engines, files, want):  # noqa: F811
+def test_fetches_follow_the_group_rule(world, engines, files, one_at_a_time, want,  # noqa: F811
+                                       monkeypatch):
+    feeders = _feeders(monkeypatch)
     timing.set_tracing(True)
-    sp, res = _sample(world, engines(16 + (len(files) == 1), 128), files=files)
+    sp, res = _sample(world, engines(16 + (len(files) == 1), 128), files=files,
+                      target_out=io.StringIO() if one_at_a_time else None)
+    assert sp._at_once != one_at_a_time
     c = sp.trace.counters
     assert {k: c.get(k, 0) for k in want} == want
-    assert c["batches"] == sp._feeder.emitted and c["rows"] == res.reads
+    assert c["batches"] == sum(f.emitted for f in feeders) and c["rows"] == res.reads
     # one fetch per group closed, and one per batch drained with its long rows
     drained = sum(1 for s in sp.trace.spans if s[0] == "collect.lane")
     closed = sum(c.get(k, 0) for k in ("flush.full", "flush.long", "flush.finish"))
     assert c["fetches"] == closed + drained
-    assert (c.get("flush.long", 0) > 0) == (drained > 0) == (len(files) == 2)
+    assert drained == 2 * (len(files) == 2)
+    # the short batches in groups of at most 4, a group closed early only by
+    # a drained batch or by finish
+    assert c.get("flush.full", 0) <= 2 and c.get("flush.long", 0) <= drained
+    assert c.get("flush.finish", 0) <= 1 and closed >= 3
 
 
 def test_profiler_traces_without_the_switch(world, engines):  # noqa: F811
@@ -258,12 +307,18 @@ def test_profiler_traces_without_the_switch(world, engines):  # noqa: F811
         sp, _ = _sample(world, engines())
     assert sp.trace is not None and len(timing.recent()) == 1
     ranges = [e for e in prof.events() if e.name.startswith("kmerid::")]
-    assert {"kmerid::sample.start", "kmerid::decode.pack",
+    # the calling thread's (the profiler records the thread that started it)
+    assert {"kmerid::sample.start", "kmerid::feed.join",
             "kmerid::sample.finish"} <= {e.name for e in ranges}
     # host-side records only: nothing among the device's events
     assert {str(e.device_type) for e in ranges} == {"DeviceType.CPU"}
-    # the calling thread's ranges carry the sample and batch ids
-    packs = [e.kwinputs for e in ranges if e.name == "kmerid::decode.pack"]
+    assert {e.kwinputs["sample"] for e in ranges} == {sp.trace.sample}
+    # where the calling thread decodes (files one at a time: a target's
+    # reads saved), its ranges carry the batch ids too
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        sp, _ = _sample(world, engines(), target_out=io.StringIO())
+    assert sp._feeder is not None
+    packs = [e.kwinputs for e in prof.events() if e.name == "kmerid::decode.pack"]
     assert [k["sample"] for k in packs] == [sp.trace.sample] * len(packs)
     assert sorted(k["batch"] for k in packs) == list(range(len(packs)))
     # after the profile, samples are untraced again

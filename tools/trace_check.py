@@ -20,14 +20,17 @@ what it costs when on, what it reads inside the sample loop, and what a
    no trace, a trace, and a trace with no clock.  Prints each arm's median
    wall and the median and quartiles of its ratios to the same round's
    ``off``, and, from the ``on`` arm's summaries (no profiler), spans per
-   batch and the in-loop readings of the benchmark's metrics of the spans
-   (benchmark/spans.py).
+   batch, the counters of the decoder (``pack.plane``, ``inflate.*``,
+   ``feed.overlap``) and the in-loop readings of the benchmark's metrics of
+   the spans (benchmark/spans.py), with ``finish``'s wait for the feed
+   threads (``feed.join``).
 3. **``classify-nx --profile``**: a DB of ``--profile-probes`` random
    probes on 5,982 targets and one pair of ``--profile-reads`` reads a file
    of the deep mix, through the CLI with ``--profile`` and ``--metrics``.
    From the Chrome trace: the ``kmerid::`` spans on each thread, the
    device's busy share over the sample, and its longest idle gaps, each with
-   the spans open across its middle.
+   the spans open across its middle; from the ``--metrics`` record, the
+   decoder's counters and the ``feed.join`` span.
 
 Writes ``result.json`` and the gzipped Chrome trace into ``--out``
 (default ``build/trace_check/``); the last line of standard output is the
@@ -204,6 +207,8 @@ def on_off(name: str, seed: int, rounds: int, device: str) -> dict:
         pack_plane = sum(s["counters"].get("pack.plane", 0) for s in got)
         inflate = {c: sum(s["counters"].get(f"inflate.{c}", 0) for s in got)
                    for c in ("blocks", "waits", "wait_us")}
+        # batches emitted while another file of the request decoded
+        overlap = sum(s["counters"].get("feed.overlap", 0) for s in got)
         n_spans = sum(v["count"] for s in got for v in s["spans"].values())
         res = {
             "rounds": rounds,
@@ -215,6 +220,7 @@ def on_off(name: str, seed: int, rounds: int, device: str) -> dict:
             "pack_plane": pack_plane,  # of them, shipped as u8 planes (exceptions overflowed)
             # the fills' read-ahead blocks, the waits for them and the us waited
             "inflate": inflate,
+            "feed_overlap": overlap,
             "in_loop": {
                 "decode_fill_ms_per_batch": spans.ms_per_batch(got, "decode.fill"),
                 "decode_pack_ms_per_batch": spans.ms_per_batch(got, "decode.pack"),
@@ -222,6 +228,7 @@ def on_off(name: str, seed: int, rounds: int, device: str) -> dict:
                     got, "decode.fill", "decode.pack", offcpu=True),
                 "decode_inflate_wait_ms_per_batch":
                     inflate["wait_us"] / 1e3 / batches if batches else None,
+                "decode_overlap_pct": 100 * overlap / batches if batches else None,
                 "feed_wait_ms_per_batch": spans.ms_per_batch(got, "feed.wait"),
                 "submit_ms_per_batch": spans.ms_per_batch(got, "submit"),
                 "submit_wait_ms_per_batch": spans.ms_per_batch(got, "submit.wait"),
@@ -235,6 +242,7 @@ def on_off(name: str, seed: int, rounds: int, device: str) -> dict:
                 "fetches_per_batch": spans.count_per_batch(got, "fetches"),
                 "sample_overhead_ms": spans.ms_per_sample(got, "sample.start",
                                                           "sample.finish", "sample.write"),
+                "feed_join_ms_per_sample": spans.ms_per_sample(got, "feed.join"),
             },
             "summaries": got,
         }
@@ -248,7 +256,8 @@ def on_off(name: str, seed: int, rounds: int, device: str) -> dict:
             f"{da['on_noclock']['over_off_median']:.4f}; {res['spans_per_batch']} spans a batch; "
             f"batches {batches}, pack.plane {pack_plane}, inflate.blocks "
             f"{inflate['blocks']}, inflate.waits {inflate['waits']}, inflate.wait_us "
-            f"{inflate['wait_us']}")
+            f"{inflate['wait_us']}, feed.overlap {overlap}, feed.join "
+            f"{res['in_loop']['feed_join_ms_per_sample']} ms a request")
         return res
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -306,7 +315,14 @@ def profile_cli(seed: int, n_probes: int, n_reads: int, device: str, out: str) -
             events = json.load(f)["traceEvents"]
         with open(metrics) as f:
             record = json.loads(f.readline())
-        return dict(read_trace(events), metrics_record=record, trace_file=kept)
+        counters = record.get("stages", {}).get("counters", {})
+        decoder = {k: counters.get(k) for k in ("batches", "feed.overlap", "inflate.blocks",
+                                                "inflate.waits", "inflate.wait_us")}
+        join = record.get("stages", {}).get("spans", {}).get("feed.join")
+        decoder["feed.join_ms"] = join["wall_ns"] / 1e6 if join else None
+        say(f"classify-nx --metrics: {decoder}")
+        return dict(read_trace(events), metrics_record=record, decoder=decoder,
+                    trace_file=kept)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
